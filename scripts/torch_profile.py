@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile.py
 
-Run from the root of a checkout on a machine with a CUDA card. Two parts:
+Run from the root of a checkout on a machine with a CUDA card. Three parts:
 
 1. the VB engine alone (`vbx_batched`, kernel route, f32 and bf16
    streams) at chip_smoke.py's bench shape, B=256, T=1025, S=31, D=128:
@@ -12,7 +12,12 @@ Run from the root of a checkout on a machine with a CUDA card. Two parts:
 2. ark -> RTTM on chip_smoke.py's 64-recording synthetic corpus
    (`diarize_ark`, f32 kernel route), warm: the pipeline's own stage
    timings (host init pool, VB left after init) from its runlog, and the
-   device busy share over the whole run from torch.profiler.
+   device busy share over the whole run from torch.profiler;
+3. the EM at chip_smoke.py's mesh shape (its 4 AMI-length recordings
+   padded to B=4, T=32768, S=8, D=128; kernel route, f32, 10 iterations
+   past convergence): `vbx_sharded` on a 1x4 mesh of cuda:0 repeated and
+   the solo `vbx_batched`, each under torch.profiler, with device time by
+   kernel and launches per iteration.
 
 Prints a summary, then one JSON object with every number as its last
 line. The profiler's own cost inflates wall times; chip_smoke.py's
@@ -79,6 +84,8 @@ def main() -> int:
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.engine.pipeline import diarize_ark
     from vbx_tpu_torch.engine.vbhmm import vbx_batched
+    from vbx_tpu_torch.parallel import make_mesh, vbx_sharded
+    from vbx_tpu_torch.testing import write_corpus
 
     out = {"device": torch.cuda.get_device_name(0),
            "card": chip_smoke.card_line()}
@@ -112,7 +119,28 @@ def main() -> int:
             chunks_launched_during_init=stages["vb_chunks_overlapped"],
             buckets=stages["buckets"])
 
-    for part in ("vb_pallas", "vb_pallas_bf16", "e2e_pallas"):
+    with tempfile.TemporaryDirectory() as work:
+        corpus = write_corpus(
+            os.path.join(work, "long"), 11, chip_smoke.MESH_LENGTHS,
+            [chip_smoke.MESH_SPEAKERS] * len(chip_smoke.MESH_LENGTHS))
+        cfg = get_preset("example").replace(
+            init=f"random_{chip_smoke.MESH_SPEAKERS}+VB")
+        args = chip_smoke.mesh_vb_args(corpus, cfg)
+    mesh = make_mesh(1, 4, devices=[torch.device("cuda", 0)] * 4)
+    n_iters = 10
+    kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
+              epsilon=float("-inf"), fb_impl="pallas", max_iters=n_iters)
+    for name, fn in (
+            ("em_mesh_1x4", lambda: vbx_sharded(mesh, *args, **kw)),
+            ("em_solo", lambda: vbx_batched(*args, device="cuda", **kw))):
+        fn()                                                 # warm-up
+        wall, kernels = _profile(fn)
+        out[name] = dict(
+            _summary(wall, kernels), shape=list(args[2].shape), iters=n_iters,
+            launches_per_iter=sum(c for c, _ in kernels.values()) / n_iters)
+
+    for part in ("vb_pallas", "vb_pallas_bf16", "e2e_pallas", "em_mesh_1x4",
+                 "em_solo"):
         r = out[part]
         print(f"{part}: wall {r['wall_ms']:.1f} ms, device busy "
               f"{r['device_busy_ms']:.1f} ms ({r['device_busy_share']:.1%})")

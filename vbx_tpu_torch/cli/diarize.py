@@ -4,8 +4,9 @@ PLDA -> per-recording RTTMs.
 The same flags as vbx_tpu.cli.diarize (argument parity with the reference
 CLI VBx/vbhmm.py:54-102, plus --init random_<N>[+VB], --preset and
 --no-batch), plus --device (default cuda; 'cpu' runs the port on the host
-explicitly). --mesh, the multi-device engine, is not ported yet and
-raises. Run it as `python -m vbx_tpu_torch.cli.diarize ...`.
+explicitly). --mesh DPxSP builds the ('dp', 'sp') mesh of the sharded
+engine on --device: the visible cards, or CPU copies with --device cpu.
+Run it as `python -m vbx_tpu_torch.cli.diarize ...`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import sys
 
 from vbx_tpu_torch.config import DATASET_PRESETS, DiarizationConfig, get_preset
 from vbx_tpu_torch.engine.pipeline import diarize_ark
+from vbx_tpu_torch.parallel.mesh import parse_mesh_arg
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,8 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "('dp','sp') device mesh, e.g. 4x2: recordings "
                         "data-parallel, frames sequence-parallel — the "
                         "long-recording path (hour-plus meetings spread "
-                        "their frames over the 'sp' chips). Overrides "
-                        "--fb-impl. Not ported yet: raises.")
+                        "their frames over the 'sp' devices). Built on "
+                        "--device: the visible cards, or CPU copies with "
+                        "--device cpu. Overrides --fb-impl.")
     p.add_argument("--plateau-ulps", type=float, default=None,
                    help="opt-in f32 plateau stop: freeze a recording whose "
                         "|dELBO| stays within this many machine quanta of "
@@ -134,17 +137,16 @@ def config_from_args(args) -> DiarizationConfig:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh (the multi-device engine) is not yet "
-                         "ported to vbx_tpu_torch")
     cfg = config_from_args(args)
+    mesh = parse_mesh_arg(args.mesh, device=args.device)
     failures = {}
     outputs = diarize_ark(
         args.xvec_ark_file, args.segments_file, args.out_rttm_dir, cfg,
         args.plda_file, args.xvec_transform,
         batch=not args.no_batch, max_batch_frames=args.max_batch_frames,
         resume=args.resume, runlog_path=args.runlog,
-        fb_impl=args.fb_impl, failures=failures, device=args.device)
+        fb_impl=args.fb_impl, failures=failures, device=args.device,
+        mesh=mesh)
     for rec, out in outputs.items():
         print(f"{rec}: {out.n_speakers} speakers, {out.n_iters} VB "
               f"iterations", file=sys.stderr)

@@ -7,9 +7,12 @@ Recordings run one by one (streaming) or padded and batched
 by (T, S), runs the host init chain across a thread pool and launches each
 bucket's chunks through the batched engine as they fill.
 
-Not ported yet: vbx_tpu's `mesh` routing (the multi-device engine),
-`shard_over_hosts`, and the corpus pre-stage that batches mid-N
-recordings' NN-chain walks and calibrations on the accelerator
+`diarize_ark(mesh=...)` routes every VB bucket through the sharded engine
+(parallel.vbx_sharded): recordings over the mesh's 'dp' rows, the frames of
+each recording over its 'sp' shards.
+
+Not ported yet: `shard_over_hosts`, and the corpus pre-stage that batches
+mid-N recordings' NN-chain walks and calibrations on the accelerator
 (vbx_tpu/engine/pipeline.py:508-599). Those recordings run the float64
 host init chain here, which gives the same labels (engine.ahc).
 """
@@ -20,6 +23,7 @@ import dataclasses
 import os
 import sys
 import time
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -35,6 +39,9 @@ from vbx_tpu_torch.io.plda import read_plda, rediagonalize_plda
 from vbx_tpu_torch.io.rttm import merge_adjacent_labels, write_rttm
 from vbx_tpu_torch.io.segments import read_xvector_timing_dict
 from vbx_tpu_torch.io.transform import read_xvec_transform
+from vbx_tpu_torch.parallel.engine import vbx_sharded
+from vbx_tpu_torch.parallel.mesh import Mesh
+from vbx_tpu_torch.utils.bucketing import T_QUANTUM
 
 
 @dataclasses.dataclass
@@ -279,6 +286,7 @@ def diarize_ark(
     fb_impl: Optional[str] = None,
     failures: Optional[Dict[str, str]] = None,
     device: DeviceLike = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, DiarizationOutput]:
     """Diarize every recording in an ark file and write per-recording RTTMs
     (CLI parity: vbhmm.py:115-179). `batch=True` pads recordings into
@@ -293,6 +301,17 @@ def diarize_ark(
     visibly. If EVERY recording fails, a RuntimeError is raised.
 
     `device`: 'cuda' unless the caller passes 'cpu'.
+
+    `mesh`: a ('dp', 'sp') parallel.Mesh routes every VB bucket through
+    the sharded engine (parallel.vbx_sharded): recordings data-parallel
+    over 'dp', frames sequence-parallel over 'sp'. This is the
+    long-recording path the reference lacks (its forward-backward is a
+    strict T-step loop, VBx/VBx.py:167-171, and its README.md:24 calls
+    files over 30 minutes its weakness). Under a mesh, single recordings
+    run as a dp-padded batch of one. fb_impl=None/'structured' uses the
+    plain-torch blockwise smoother; 'pallas'/'pallas_bf16' run the K2 + K1
+    kernels on every shard; anything else, and batch=False, is overridden
+    with a warning.
     """
     from vbx_tpu_torch.utils.runlog import RunLog
 
@@ -326,7 +345,25 @@ def diarize_ark(
     outputs: Dict[str, DiarizationOutput] = {}
     try:
         _, _, run_vb = _parse_init(config.init)
-        if not run_vb or not batch or len(recs) == 1:
+        if mesh is not None and run_vb:
+            n_sp = mesh.shape["sp"]
+            if T_QUANTUM % n_sp:
+                raise ValueError(
+                    f"mesh 'sp' extent {n_sp} must divide the smallest "
+                    f"frame bucket ({T_QUANTUM})")
+            mesh_fb = (fb_impl if fb_impl in ("structured", "pallas",
+                                              "pallas_bf16") else None)
+            if not batch or (fb_impl is not None and mesh_fb is None):
+                # a mesh implies the sharded batched engine: say so rather
+                # than silently ignoring the arguments
+                warnings.warn(
+                    "mesh routing overrides "
+                    + ("batch=False" if not batch else f"fb_impl="
+                       f"{fb_impl!r}")
+                    + ": the sharded engine is batched and supports "
+                      "fb_impl in ('structured', 'pallas', "
+                      "'pallas_bf16')", stacklevel=2)
+        if not run_vb or (mesh is None and (not batch or len(recs) == 1)):
             for rec, seg_names, x_raw in recs:
                 if verbose:
                     print(rec)
@@ -341,7 +378,8 @@ def diarize_ark(
             stage_log: Dict[str, object] = {}
             outputs = _diarize_batched(diar, recs, max_batch_frames, verbose,
                                        fb_impl=fb_impl, stage_log=stage_log,
-                                       runlog=runlog, failures=failures)
+                                       runlog=runlog, failures=failures,
+                                       mesh=mesh)
             runlog.write({"event": "stages", **stage_log})
 
         if not outputs and not n_resumed:
@@ -405,6 +443,7 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
                      stage_log: Optional[Dict[str, object]] = None,
                      runlog=None,
                      failures: Optional[Dict[str, str]] = None,
+                     mesh: Optional[Mesh] = None,
                      ) -> Dict[str, DiarizationOutput]:
     """Bucketed-padded batched VB over all recordings, pipelined against the
     host init chain. The init chain (f64 transform + similarity +
@@ -421,7 +460,11 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     `stage_log`, if given, is filled with wall-clock stage timings: init_s
     (pool wall), vb_s (VB work left after init finished),
     vb_chunks_overlapped (chunks launched while init was running), and
-    per-bucket shapes."""
+    per-bucket shapes.
+
+    `mesh` sends each chunk through parallel.vbx_sharded, padded to a
+    multiple of the 'dp' extent with replicas of its first recording;
+    max_batch_frames is then a per-device budget."""
     from concurrent.futures import ThreadPoolExecutor, as_completed
 
     from vbx_tpu_torch.clustering import set_native_threads
@@ -453,27 +496,47 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     done: List[dict] = []
 
     def launch(idxs: List[int], T_pad: int, S_pad: int) -> None:
-        B = len(idxs)
-        X = torch.stack([prepped[i][3] for i in idxs])
-        G = torch.stack([prepped[i][4] for i in idxs])
+        # under a mesh the sharded engine needs B divisible by the 'dp'
+        # extent: pad with REPLICAS of lane 0 (results discarded; an
+        # all-masked lane would put zero counts through the M-step
+        # divisions, and a replica converges in lockstep with lane 0, so
+        # padding adds no EM iterations)
+        stack_idxs = idxs
+        if mesh is not None:
+            n_dp = mesh.shape["dp"]
+            stack_idxs = idxs + [idxs[0]] * (-len(idxs) % n_dp)
+        B = len(stack_idxs)
+        X = torch.stack([prepped[i][3] for i in stack_idxs])
+        G = torch.stack([prepped[i][4] for i in stack_idxs])
         PI = np.zeros((B, S_pad), dtype=diar._np_dtype)
         FM = np.zeros((B, T_pad), dtype=bool)
         SM = np.zeros((B, S_pad), dtype=bool)
-        for bi, i in enumerate(idxs):
+        for bi, i in enumerate(stack_idxs):
             _, T, S, _, _ = prepped[i]
             PI[bi, :S] = 1.0 / S
             FM[bi, :T] = True
             SM[bi, :S] = True
+        for i in idxs:
             prepped[i][3] = prepped[i][4] = None
-        eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, fb_impl)
-        smask = torch.as_tensor(SM, device=dev)
-        res = vbx_batched(
-            X, diar._put(phi[:cfg.lda_dim]), G, diar._put(PI),
-            torch.as_tensor(FM, device=dev), smask,
-            loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
-            max_iters=cfg.vb.max_iters, epsilon=eps_eff, fb_impl=fb_impl,
-            plateau_ulps=pu_eff, plateau_iters=pi_eff, device=dev)
-        l1, l2 = _top2(res.gamma, smask)
+        kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
+                  max_iters=cfg.vb.max_iters)
+        if mesh is not None:
+            mesh_fb = fb_impl if fb_impl in ("pallas", "pallas_bf16") else None
+            eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, mesh_fb)
+            res = vbx_sharded(
+                mesh, X, diar._put(phi[:cfg.lda_dim]), G, diar._put(PI),
+                FM, SM, epsilon=eps_eff, fb_impl=mesh_fb,
+                plateau_ulps=pu_eff, plateau_iters=pi_eff, **kw)
+        else:
+            eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, fb_impl)
+            res = vbx_batched(
+                X, diar._put(phi[:cfg.lda_dim]), G, diar._put(PI),
+                torch.as_tensor(FM, device=dev), torch.as_tensor(SM,
+                                                                 device=dev),
+                epsilon=eps_eff, fb_impl=fb_impl, plateau_ulps=pu_eff,
+                plateau_iters=pi_eff, device=dev, **kw)
+        l1, l2 = _top2(res.gamma, torch.as_tensor(SM,
+                                                  device=res.gamma.device))
         done.append({"idxs": idxs, "T_pad": T_pad, "S_pad": S_pad,
                      "l1": l1.cpu().numpy(), "l2": l2.cpu().numpy(),
                      "iters": res.n_iters.cpu().numpy(),
@@ -511,6 +574,14 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
                     phi = p
                 pending.setdefault(key, []).append(i)
                 per_batch = chunk_cap(key[0], max_batch_frames)
+                if mesh is not None:
+                    # max_batch_frames is a PER-DEVICE budget and the mesh
+                    # splits each chunk's frames over all its devices;
+                    # floor to a dp multiple (at least one dp group), since
+                    # launch() pads B up to one
+                    n_dp = mesh.shape["dp"]
+                    per_batch = max(n_dp,
+                                    per_batch * mesh.size // n_dp * n_dp)
                 want = min(next_chunk.get(key, 1), per_batch)
                 if len(pending[key]) >= want:
                     # launch now, under the remaining init; double the next

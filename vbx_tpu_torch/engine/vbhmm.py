@@ -392,14 +392,17 @@ def vbx(
     return VBxResult(*(x[0] for x in res))
 
 
-def _over_kernel_capacity(fb_impl: str, S: int, dev: torch.device) -> str:
-    """The kernel route asked for more than the kernel's S_MAX speakers. On
-    a card that raises: a card never leaves the kernel route. On the CPU,
-    where the route runs the kernel's plain twin anyway, the engine falls
-    back to 'structured' with a UserWarning, as vbx_tpu does past its
-    kernel's 256 (the reference loop has no S limit, VBx.py:97-98)."""
-    msg = (f"fb_impl={fb_impl!r} supports at most {S_MAX} speakers (the "
-           f"fused kernel's per-lane capacity); got S={S}")
+def _over_kernel_capacity(fb_impl: str, S: int, dev: torch.device,
+                          cap: int = S_MAX,
+                          kernel: str = "fused kernel") -> str:
+    """The kernel route asked for more than its kernel's `cap` speakers
+    (S_MAX for the fused kernel). On a card that raises: a card never
+    leaves the kernel route. On the CPU, where the route runs the kernel's
+    plain twin anyway, the engine falls back to 'structured' with a
+    UserWarning, as vbx_tpu does past its kernel's 256 (the reference loop
+    has no S limit, VBx.py:97-98)."""
+    msg = (f"fb_impl={fb_impl!r} supports at most {cap} speakers (the "
+           f"{kernel}'s per-lane capacity); got S={S}")
     if dev.type != "cpu":
         raise ValueError(f"{msg}; on {dev} use fb_impl='structured'")
     warnings.warn(f"{msg} — falling back to fb_impl='structured'",
