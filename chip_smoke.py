@@ -30,7 +30,12 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    CPU's structured engine (the reference route) and the kernel route's
    labels must agree with it on >= 99.5% of frames. Then a warm rerun
    gives the e2e seconds per recording, and the VB engine alone runs to
-   convergence at the bench shape (D=128) for VB recordings per second;
+   convergence at the bench shape (D=128) for VB recordings per second.
+   On the same corpus, the diagnostics that need it: vbx_debug on one
+   recording against its truth labels (float32 on the card: ELBO trace
+   non-decreasing to roundoff, final frame DER printed), and cli/score.py
+   over the f32 run's RTTMs against truth RTTMs written from the synthetic
+   labels (the OVERALL row; DER and JER are information);
 5. mesh path: 4 AMI-length synthetic recordings (32768, 30000, 24000 and
    17000 x-vectors, 8 speakers, init random_8+VB) through diarize_ark on
    a 1x4 mesh of cuda:0 repeated with fb_impl 'pallas' and 'pallas_bf16',
@@ -41,14 +46,30 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    frames. Then ms per EM iteration of the sharded and the solo engine at
    that shape. One card runs the four shards one after another on one
    stream: these times are the shards' summed work, not multi-card
-   scaling;
-6. one JSON line listing every ported kernel with its numbers;
-7. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+   scaling. Then vbx_batched_checkpointed(mesh=) on the longest recording:
+   stopped after its first slice and resumed from its file, it must equal
+   the unsliced vbx_sharded run bit for bit;
+6. diagnostics path at full width: the kernel A/B tool
+   (scripts/torch_ab_fb_kernels.py main() at its defaults: fb_scan fused
+   against two-pass, then a 10-iteration EM A/B of the kernel route against
+   the structured route), with K3-K5's launch counters reset just before
+   and read just after; vbx_batched_checkpointed at the bench shape on the
+   kernel route, 4 iterations per slice, stopped after the first slice and
+   resumed from its file: n_iters, gamma and the ELBO trace bit-equal to
+   the unsliced vbx_batched run, the file gone at the end;
+   forward_backward_assoc against forward_backward_structured at T=1025,
+   S=31 on the card (float64 within 1e-9; float32 within ASSOC_F32_BAR);
+7. one JSON line listing every ported kernel with its numbers, the total
+   seconds;
+8. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Without a card, or outside a checkout, it exits non-zero before printing
 any result.
 """
 
+import contextlib
+import importlib.util
+import io
 import json
 import os
 import statistics
@@ -67,6 +88,18 @@ BARS = {"float32": (2e-5, 1e-5, 2e-4), "bfloat16": (8e-3, 2e-3, 2e-2)}
 # the same stream; a row's S products summed in another order): fhat
 # relative to each row's max, ls relative to max(1, |ls|)
 K2_BAR = 4e-6
+# K3-K5 against their twins (both float32 walks on the same weights: they
+# differ in summation order and FMA contraction): ahat absolute, bhat
+# absolute after per-frame normalization, cfw relative, on valid frames
+SCAN_BARS = {"ahat": 2e-5, "bhat_normalized": 2e-5, "cfw_rel": 1e-5}
+# forward_backward_assoc against the structured smoother, float32 gamma at
+# T=1025, S=31. The assoc form carries rounding through its log2(T)
+# composition rounds: on these inputs it differs from the structured
+# smoother by 6.7e-4 on a CPU, and vbx_tpu's own float32 assoc by 7.6e-4
+# from its own structured smoother, so 2e-5 is out of the algorithm's reach
+# in float32. The bar is tests/test_forward_backward.py's for the assoc
+# form at long T; float64 is held at 1e-9.
+ASSOC_F32_BAR = 2e-3
 N_RECORDINGS = 64
 MESH_LENGTHS = (32768, 30000, 24000, 17000)
 MESH_SPEAKERS = 8
@@ -370,6 +403,159 @@ def k2_phase(io_name: str) -> dict:
             "shape": main["shape"]}
 
 
+# K3-K5 shapes: (name, T, B, S, valid frames of lane B-1 or None). The A/B
+# tool's shape; tests/test_pallas.py's (40, 5, 3), (600, 31, 4) and its
+# padded case T=100+30, S=6, B=1; 2 and 4 speakers per thread; a batch
+# that is no multiple of the 4 lanes per block.
+SCAN_SHAPES = (("ab", 1025, 256, 31, 820), ("t40", 40, 3, 5, None),
+               ("t600", 600, 4, 31, 480), ("padded", 130, 1, 6, 100),
+               ("S64", 200, 6, 64, 150), ("S128", 200, 8, 128, 150),
+               ("B37", 300, 37, 31, 200))
+
+
+def scan_case(T, B, S, n_valid, seed):
+    """[T, B, S] emission weights (max 1 per frame) on the card, lane 0's
+    last two speakers absent (w and prior exactly 0), the last lane ending
+    in a padded suffix after n_valid frames, and the validity-filled copy
+    fb_scan hands its kernels."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    log_p = 3.0 * torch.randn((T, B, S), generator=gen, device="cuda") - 30
+    m = log_p.amax(-1)
+    w = torch.exp(log_p - m[..., None])
+    pi = torch.rand((B, S), generator=gen, device="cuda")
+    if S > 2:
+        w[:, 0, -2:] = 0.0
+        pi[0, -2:] = 0.0
+    pi /= pi.sum(-1, keepdim=True)
+    valid = torch.ones((T, B), device="cuda")
+    if n_valid is not None:
+        valid[n_valid:, B - 1] = 0.0
+    lp = 0.9
+    vm = valid[:, :, None]
+    return dict(w=w.contiguous(), wf=(w * vm + (1 - vm) / S).contiguous(),
+                valid=valid, m=m, lp=lp,
+                col=((1 - lp) * pi + 1e-8).contiguous(),
+                pinit=(pi + 1e-8).contiguous())
+
+
+def scan_phase() -> list:
+    """K3 (fb_scan_fused), K4 (fb_scan_fwd) and K5 (fb_scan_bwd) against
+    their plain twins on the same card inputs at SCAN_SHAPES, the fused
+    route against the two-pass route, K3 against K1 on the same inputs
+    transposed, and the times at the A/B shape."""
+    import torch
+
+    from vbx_tpu_torch.ops import fb_kernel
+    from vbx_tpu_torch.ops import fb_scan_kernel as fbs
+
+    def norm(b):
+        return b / b.sum(-1, keepdim=True)
+
+    checks = {"fb_scan_fused": {}, "fb_scan_fwd": {}, "fb_scan_bwd": {}}
+    cross = {}
+    for i, (name, T, B, S, n_valid) in enumerate(SCAN_SHAPES):
+        c = scan_case(T, B, S, n_valid, seed=200 + i)
+        wf, col, pinit, lp = c["wf"], c["col"], c["pinit"], c["lp"]
+        ok = c["valid"].bool()
+        a3, b3 = fbs.fb_scan_fused(wf, col, pinit, lp)
+        a4, c4 = fbs.fb_scan_fwd(wf, col, pinit, lp)
+        b5 = fbs.fb_scan_bwd(wf, col, lp)
+        ap, cp = fbs.fb_scan_fwd_plain(wf, col, pinit, lp)
+        bp = fbs.fb_scan_bwd_plain(wf, col, lp)
+        torch.cuda.synchronize()
+
+        def err_a(a):
+            return float((a - ap).abs()[ok].max())
+
+        def err_b(b):
+            return float((norm(b) - norm(bp)).abs()[ok].max())
+
+        errs = {"fb_scan_fused": {"ahat": err_a(a3),
+                                  "bhat_normalized": err_b(b3)},
+                "fb_scan_fwd": {"ahat": err_a(a4), "cfw_rel": float(
+                    ((c4 - cp).abs() / cp)[ok].max())},
+                "fb_scan_bwd": {"bhat_normalized": err_b(b5)}}
+        for kname, err in errs.items():
+            bad = [n for n, v in err.items() if not v <= SCAN_BARS[n]]
+            if bad:
+                fail(f"{kname} at {name} (T={T}, B={B}, S={S}) disagrees "
+                     f"with its plain twin on {bad}: {err}")
+            checks[kname][name] = {"shape": [T, B, S], **err}
+        # the API's two routes against each other (the A/B tool's check)
+        f = fbs.fb_scan(c["w"], c["valid"], col, pinit, lp, fused=True)
+        t = fbs.fb_scan(c["w"], c["valid"], col, pinit, lp, fused=False)
+
+        def gamma(a, b):
+            ab = a * b
+            return ab / ab.sum(-1, keepdim=True) * c["valid"][:, :, None]
+
+        x = {"fused_vs_two_pass_gamma": float(
+                 (gamma(f[0], f[1]) - gamma(t[0], t[1])).abs().max()),
+             "fused_vs_two_pass_lognorm": float(
+                 (torch.log(f[2]) - torch.log(t[2])).abs()[ok].max())}
+        # K3 against K1 (the [B, T, S] fused kernel, divide form, uniform
+        # backward start) on the same filled weights transposed
+        k1 = fb_kernel.fb_fused_sb(
+            wf.transpose(0, 1).contiguous(), col, pinit,
+            torch.full((B, S), 1.0 / S, device="cuda"), lp, recip=False)
+        torch.cuda.synchronize()
+        a1, b1, c1 = (y.transpose(0, 1) for y in k1)
+        x["k3_vs_k1_ahat"] = float((a3 - a1).abs()[ok].max())
+        x["k3_vs_k1_bhat_normalized"] = float(
+            (norm(b3) - norm(b1)).abs()[ok].max())
+        x["k3_rebuilt_cfw_vs_k1_rel"] = float(
+            ((f[2] - c1).abs() / c1)[ok].max())
+        bad = [n for n, v in x.items()
+               if not v <= (1e-5 if "cfw" in n or "lognorm" in n else 2e-5)]
+        if bad:
+            fail(f"fb_scan cross-check at {name} (T={T}, B={B}, S={S}) "
+                 f"failed on {bad}: {x}")
+        cross[name] = {"shape": [T, B, S], **x}
+        if name == "ab":
+            ab = c
+    wf, col, pinit, lp = ab["wf"], ab["col"], ab["pinit"], ab["lp"]
+    T, B, S = wf.shape
+    tbs, bs, tb = T * B * S * 4, B * S * 4, T * B * 4
+
+    def both_passes():
+        fbs.fb_scan_fwd(wf, col, pinit, lp)
+        fbs.fb_scan_bwd(wf, col, lp)
+
+    # bytes each function must move (float32): w, col (and pinit) in; ahat
+    # / bhat (and cfw) out; ~12 operations per (frame, lane, speaker) for
+    # the two chains, ~6 for one
+    rows = (("fb_scan_fused", ":150", 3 * tbs + 2 * bs, 12,
+             lambda: fbs.fb_scan_fused(wf, col, pinit, lp),
+             lambda: fbs.fb_scan_fused_plain(wf, col, pinit, lp)),
+            ("fb_scan_fwd", ":92", 2 * tbs + 2 * bs + tb, 6,
+             lambda: fbs.fb_scan_fwd(wf, col, pinit, lp),
+             lambda: fbs.fb_scan_fwd_plain(wf, col, pinit, lp)),
+            ("fb_scan_bwd", ":121", 2 * tbs + bs, 6,
+             lambda: fbs.fb_scan_bwd(wf, col, lp),
+             lambda: fbs.fb_scan_bwd_plain(wf, col, lp)))
+    out = []
+    for kname, line, nbytes, ops, kernel, plain in rows:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops * T * B * S / F32_OPS_PER_S * 1e3
+        out.append({
+            "name": kname, "route": "cuda",
+            "source": "vbx_tpu_torch/csrc/fb_scan_tbs.cu",
+            "replaces": f"vbx_tpu/ops/fb_pallas.py{line}", "launches": None,
+            "max_abs_err": max(v for c in checks[kname].values()
+                               for n, v in c.items() if n != "shape"),
+            "ms": _cuda_ms(kernel), "plain_ms": _host_ms(plain),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            # no single PyTorch call computes these recursions
+            "library_ms": None,
+            "checks": checks[kname], "bytes": nbytes, "shape": [T, B, S]})
+    out[0]["cross"] = cross
+    out[0]["two_pass_ms"] = _cuda_ms(both_passes)
+    return out
+
+
 def wide_ms() -> dict:
     """The several-warp instance (S > 256) at the bench's B and T: kernel
     time and its bytes bound, float32 streams."""
@@ -418,7 +604,8 @@ def main_path(work: str) -> dict:
     out = {"corpus": {"recordings": N_RECORDINGS,
                       "x_vectors": int(sum(len(z) for z in
                                            corpus["truth"].values())),
-                      "write_s": time.perf_counter() - t0}}
+                      "write_s": time.perf_counter() - t0},
+           "files": corpus}
     cuda = torch.device("cuda")
     runs = (("f32", get_preset("example"), "pallas"),
             ("bf16", get_preset("callhome"), None))
@@ -531,6 +718,206 @@ def vb_throughput(fb_impl: str) -> dict:
     return {"fb_impl": fb_impl, "shape": [B, T, S, D], "seconds": secs,
             "max_iters_run": iters, "ms_per_iter": secs / iters * 1e3,
             "rec_per_s": B / secs}
+
+
+def _stop_after_first_call(module, name):
+    """Context manager: module.<name> raises KeyboardInterrupt from its
+    second call on (a simulated stop after a checkpointed run's first
+    slice)."""
+    real = getattr(module, name)
+    calls = {"n": 0}
+
+    def dying(*a, **k):
+        calls["n"] += 1
+        if calls["n"] > 1:
+            raise KeyboardInterrupt("simulated stop")
+        return real(*a, **k)
+
+    @contextlib.contextmanager
+    def patched():
+        setattr(module, name, dying)
+        try:
+            yield
+        finally:
+            setattr(module, name, real)
+
+    return patched()
+
+
+def checkpointed_resume(tag, ck, unsliced, sliced, module, name) -> dict:
+    """Run `sliced(ck)` (a vbx_batched_checkpointed call writing to file
+    ck) with a simulated stop after its first slice, rerun it so that it
+    resumes from the file, and hold the result to `unsliced()` bit for bit:
+    n_iters, gamma and the ELBO trace. The file must exist after the stop
+    and be gone at the end."""
+    import numpy as np
+    import torch
+
+    ref = unsliced()
+    torch.cuda.synchronize()
+    with _stop_after_first_call(module, name):
+        try:
+            sliced(ck)
+        except KeyboardInterrupt:
+            pass
+        else:
+            fail(f"{tag}: the run converged inside its first slice; "
+                 f"nothing was resumed")
+    if not os.path.exists(ck):
+        fail(f"{tag}: no checkpoint file after the stop")
+    with np.load(ck) as f:
+        header = {"fb_impl": str(f["fb_impl"]), "dtype": str(f["dtype"]),
+                  "it_done": int(f["it_done"])}
+    t0 = time.perf_counter()
+    out = sliced(ck)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if os.path.exists(ck):
+        fail(f"{tag}: the checkpoint file is still there after completion")
+    diffs = {
+        "n_iters": int((out.n_iters.cpu() != ref.n_iters.cpu()).sum()),
+        "gamma_max_abs": float((out.gamma - ref.gamma.to(out.gamma.device))
+                               .abs().max()),
+        "elbo_differs": not np.array_equal(
+            out.elbo.cpu().numpy(), ref.elbo.cpu().numpy(), equal_nan=True)}
+    if diffs["n_iters"] or diffs["gamma_max_abs"] != 0.0 \
+            or diffs["elbo_differs"]:
+        fail(f"{tag}: the resumed sliced run is not bit-equal to the "
+             f"unsliced run: {diffs}")
+    return {**header, "resume_s": secs,
+            "n_iters": [int(n) for n in ref.n_iters.cpu()[:8]],
+            "max_n_iters": int(ref.n_iters.max()), "bit_equal": True}
+
+
+def corpus_diagnostics(work: str, corpus, sys_rttm_dir: str) -> dict:
+    """The diagnostics that run on the main path's corpus: the debug oracle
+    on its first recording, and the scorer over the main path's RTTMs."""
+    import numpy as np
+
+    from vbx_tpu_torch.cli.score import main as score_main
+    from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.engine.debug import frame_der, vbx_debug
+    from vbx_tpu_torch.engine.pipeline import Diarizer
+    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.testing import write_truth_rttms
+
+    cfg = get_preset("example")
+    diar = Diarizer.from_files(cfg, corpus["plda"], corpus["transform"],
+                               device="cuda")
+    rec, _, x_raw = next(iter(group_by_recording(
+        iter_vec_ark(corpus["ark"]))))
+    truth = corpus["truth"][rec]
+    x = diar.transform_xvectors(x_raw)
+    fea, phi, q0 = diar.vb_inputs(x, diar.initial_labels(x))
+    S = q0.shape[1]
+    q, _, trace = vbx_debug(
+        fea.astype(np.float32), phi[:cfg.lda_dim].astype(np.float32),
+        q0.astype(np.float32), np.full(S, 1.0 / S, np.float32),
+        ref_labels=truth, loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa,
+        Fb=cfg.vb.Fb, max_iters=cfg.vb.max_iters, epsilon=cfg.vb.epsilon,
+        device="cuda")
+    elbo = np.array([t.elbo for t in trace])
+    # float32 roundoff of an ELBO that sums T per-frame terms
+    slack = 1e-5 * np.abs(elbo[1:])
+    if not (np.isfinite(elbo).all() and np.isfinite(q).all()
+            and (np.diff(elbo) >= -slack).all()):
+        fail(f"vbx_debug on {rec}: ELBO trace not finite or decreasing "
+             f"past float32 roundoff: {elbo.tolist()}")
+    out = {"debug": {"recording": rec, "frames": len(truth), "speakers": S,
+                     "iters": len(trace), "elbo_first": float(elbo[0]),
+                     "elbo_last": float(elbo[-1]),
+                     "expected_der": trace[-1].der,
+                     "frame_der": frame_der(q, truth, expected=False),
+                     "xent": trace[-1].xent}}
+
+    truth_dir = os.path.join(work, "rttm_truth")
+    write_truth_rttms(truth_dir, corpus["truth"])
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = score_main(["-r", os.path.join(truth_dir, "*.rttm"),
+                         "-s", os.path.join(sys_rttm_dir, "*.rttm"),
+                         "--collar", "0.25"])
+    lines = text.getvalue().splitlines()
+    if rc != 0 or len(lines) != 2 or not lines[-1].startswith("*** OVERALL"):
+        fail(f"cli/score.py returned {rc} and printed {lines}")
+    out["score"] = {"header": lines[0], "overall": lines[1]}
+    return out
+
+
+def assoc_check() -> dict:
+    """forward_backward_assoc against forward_backward_structured at
+    T=1025, S=31 on the card, float64 and float32."""
+    import torch
+
+    from vbx_tpu_torch.ops.forward_backward import (
+        forward_backward_assoc, forward_backward_structured)
+
+    T, S = BENCH["T"], BENCH["S"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    log_p = 3.0 * torch.randn((T, S), generator=gen, device="cuda",
+                              dtype=torch.float64) - 30
+    pi = torch.rand((S,), generator=gen, device="cuda", dtype=torch.float64)
+    pi /= pi.sum()
+    out = {"shape": [T, S]}
+    for dtype, bar in ((torch.float64, 1e-9), (torch.float32,
+                                                ASSOC_F32_BAR)):
+        a = forward_backward_assoc(log_p.to(dtype), pi.to(dtype), 0.99)
+        s = forward_backward_structured(log_p.to(dtype), pi.to(dtype), 0.99)
+        torch.cuda.synchronize()
+        err = {"gamma": float((a.gamma - s.gamma).abs().max()),
+               "log_px_rel": float((a.log_px - s.log_px).abs()
+                                   / s.log_px.abs()),
+               "pi_stat_over_max": float((a.pi_stat - s.pi_stat).abs().max()
+                                         / s.pi_stat.max())}
+        if not (err["gamma"] <= bar and err["log_px_rel"] <= 1e-5
+                and err["pi_stat_over_max"] <= bar):
+            fail(f"forward_backward_assoc vs structured at T={T}, S={S}, "
+                 f"{dtype}: {err} past {bar}")
+        out[str(dtype).replace("torch.", "")] = err
+    return out
+
+
+def diagnostics_path(work: str) -> dict:
+    """The kernel A/B and diagnostics path at full width (module
+    docstring, phase 6)."""
+    import vbx_tpu_torch.engine.vbhmm as vbhmm
+    from vbx_tpu_torch.ops import fb_kernel
+    from vbx_tpu_torch.ops import fb_scan_kernel as fbs
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_ab_fb_kernels",
+        os.path.join(HERE, "scripts", "torch_ab_fb_kernels.py"))
+    ab_tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab_tool)
+    counters = {"fb_scan_fused": fbs.fb_scan_fused,
+                "fb_scan_fwd": fbs.fb_scan_fwd,
+                "fb_scan_bwd": fbs.fb_scan_bwd,
+                "fb_fused_sb": fb_kernel.fb_fused_sb}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ab = ab_tool.main([])
+    out = {"ab": ab, "ab_s": time.perf_counter() - t0,
+           "launches": {n: fn.launches for n, fn in counters.items()}}
+    idle = [n for n, k in out["launches"].items() if k < 1]
+    if idle:
+        fail(f"the A/B tool launched {idle} no time")
+    if not (ab["gamma_maxdiff"] <= 2e-5 and ab["lognorm_maxdiff"] <= 1e-5):
+        fail(f"A/B tool: fused vs two-pass differ: {ab}")
+
+    args = bench_vb_args()
+    kw = dict(BENCH_VB_KW, fb_impl="pallas")
+    fb_kernel.fb_fused_sb.launches = 0
+    out["checkpointed"] = checkpointed_resume(
+        "vbx_batched_checkpointed at the bench shape",
+        os.path.join(work, "vb_state.npz"),
+        lambda: vbhmm.vbx_batched(*args, **kw),
+        lambda ck: vbhmm.vbx_batched_checkpointed(
+            *args, **kw, iters_per_slice=4, checkpoint_path=ck),
+        vbhmm, "vbx_batched")
+    out["checkpointed"]["k1_launches"] = fb_kernel.fb_fused_sb.launches
+    out["assoc"] = assoc_check()
+    return out
 
 
 def mesh_vb_args(corpus, cfg):
@@ -660,12 +1047,30 @@ def mesh_path(work: str) -> dict:
             r["agreement_vs_solo"] = agree
         out[tag] = r
     out["em"] = mesh_em_ms(corpus, cfg, meshes["1x4"])
+
+    # the checkpointed mesh form on the longest recording (one resume)
+    import vbx_tpu_torch.engine.vbhmm as vbhmm
+    import vbx_tpu_torch.parallel.engine as sharded
+    from vbx_tpu_torch.parallel import vbx_sharded
+
+    args = [a[:1] if a.dim() > 1 else a for a in mesh_vb_args(corpus, cfg)]
+    kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
+              max_iters=8, epsilon=float("-inf"), fb_impl="pallas")
+    out["checkpointed"] = checkpointed_resume(
+        "vbx_batched_checkpointed(mesh=1x4) on the longest recording",
+        os.path.join(work, "mesh_state.npz"),
+        lambda: vbx_sharded(meshes["1x4"], *args, **kw),
+        lambda ck: vbhmm.vbx_batched_checkpointed(
+            *args, **kw, iters_per_slice=4, checkpoint_path=ck,
+            mesh=meshes["1x4"]),
+        sharded, "vbx_sharded")
     return out
 
 
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
     if not os.path.isdir(os.path.join(HERE, "vbx_tpu_torch", "csrc")):
@@ -715,8 +1120,26 @@ def main() -> int:
               f"({k['bound_by']}, {k['bytes'] / 1e6:.2f} MB) at "
               f"B,Tb,S,R={k['shape']}")
 
+    scan = scan_phase()
+    for k in scan:
+        for name, c in k["checks"].items():
+            print(f"kernel {k['name']} vs plain twin at {name} "
+                  f"(T,B,S={c['shape']}): {json.dumps(c)}")
+        print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}; "
+              f"{k['ms']:.4f} ms (median of 25, CUDA events) vs plain twin "
+              f"{k['plain_ms']:.1f} ms; bound {k['bound_ms'] * 1e3:.1f} us "
+              f"({k['bound_by']}, {k['bytes'] / 1e6:.1f} MB) at "
+              f"T,B,S={k['shape']}")
+    for name, c in scan[0]["cross"].items():
+        print(f"fb_scan cross-checks at {name}: {json.dumps(c)}")
+    print(f"fb_scan_fwd then fb_scan_bwd: {scan[0]['two_pass_ms']:.4f} ms "
+          f"(median of 25), {scan[0]['two_pass_ms'] / scan[0]['ms']:.2f}x "
+          f"fb_scan_fused")
+
     with tempfile.TemporaryDirectory() as work:
         mp = main_path(work)
+        cd = corpus_diagnostics(work, mp["files"],
+                                os.path.join(work, "rttm_f32"))
     kernels[0]["launches"] = mp["f32"]["launches"]
     kernels[1]["launches"] = mp["bf16"]["launches"]
     for tag in ("f32", "bf16"):
@@ -729,6 +1152,17 @@ def main() -> int:
           f"({mp['warm_e2e_s']:.2f} s for {N_RECORDINGS}); kernel route vs "
           f"CPU structured route agreement "
           f"{mp['small_kernel_vs_cpu_structured_agreement']:.4f}")
+
+    d = cd["debug"]
+    print(f"vbx_debug on {d['recording']} ({d['frames']} frames, "
+          f"{d['speakers']} initial speakers, float32 on the card): "
+          f"{d['iters']} iterations, ELBO {d['elbo_first']:.2f} -> "
+          f"{d['elbo_last']:.2f} non-decreasing, final frame DER "
+          f"{d['frame_der']:.4f} (expected DER {d['expected_der']:.4f}, "
+          f"cross-entropy {d['xent']:.4f}) against the truth labels")
+    print(f"cli/score.py, main path f32 RTTMs vs truth RTTMs, collar 0.25:")
+    print(f"  {cd['score']['header']}")
+    print(f"  {cd['score']['overall']}")
 
     for fb_impl in ("pallas", "pallas_bf16"):
         v = vb_throughput(fb_impl)
@@ -744,7 +1178,7 @@ def main() -> int:
           f"{list(MESH_LENGTHS)} x-vectors, {MESH_SPEAKERS} speakers, "
           f"written in {mp['corpus']['write_s']:.1f} s")
     for tag, r in mp.items():
-        if tag in ("corpus", "em"):
+        if tag in ("corpus", "em", "checkpointed"):
             continue
         vs_solo = (f", agreement vs solo {r['agreement_vs_solo']:.4f}"
                    if "agreement_vs_solo" in r else "")
@@ -758,10 +1192,43 @@ def main() -> int:
           f"{em['solo_ms_per_iter']} ms/iter (one card: the mesh's four "
           f"shards run one after another on one stream)")
 
+    ck = mp["checkpointed"]
+    print(f"checkpointed mesh form ({ck['fb_impl']}, {ck['dtype']}): stopped "
+          f"after {ck['it_done']} iterations, resumed in "
+          f"{ck['resume_s']:.2f} s, {ck['max_n_iters']} iterations, "
+          f"bit-equal to the unsliced vbx_sharded run, file removed")
+
+    with tempfile.TemporaryDirectory() as work:
+        dp = diagnostics_path(work)
+    for k in scan:
+        k["launches"] = dp["launches"][k["name"]]
+    kernels += scan
+    ab = dp["ab"]
+    print(f"A/B tool at B,T,S,D={ab['shape']} ({dp['ab_s']:.1f} s): fb_scan "
+          f"fused {ab['kernel_fused_ms']:.4f} ms, two-pass "
+          f"{ab['kernel_two_pass_ms']:.4f} ms "
+          f"({ab['kernel_two_pass_ms'] / ab['kernel_fused_ms']:.2f}x); gamma "
+          f"maxdiff {ab['gamma_maxdiff']:.2e}, log-normalizer maxdiff "
+          f"{ab['lognorm_maxdiff']:.2e}; EM(10 iterations) kernel route "
+          f"{ab['em_pallas_ms']:.1f} ms, structured "
+          f"{ab['em_structured_ms']:.1f} ms; launches {dp['launches']}")
+    ck = dp["checkpointed"]
+    print(f"checkpointed kernel route at the bench shape ({ck['fb_impl']}, "
+          f"{ck['dtype']}, 4 iterations per slice): stopped after "
+          f"{ck['it_done']}, resumed in {ck['resume_s']:.2f} s, "
+          f"{ck['max_n_iters']} iterations at most, {ck['k1_launches']} K1 "
+          f"launches, bit-equal to the unsliced vbx_batched run, file "
+          f"removed")
+    a = dp["assoc"]
+    print(f"forward_backward_assoc vs structured at T,S={a['shape']}: "
+          f"float64 {json.dumps(a['float64'])}; float32 "
+          f"{json.dumps(a['float32'])} (gamma bar {ASSOC_F32_BAR})")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kr[k] for k in keys}
                                   for kr in kernels]}))
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Least times on an H100 for the TPU kernels that the port has not ported
-yet (K3-K5 of vbx_tpu/ops/fb_pallas.py), at the shapes tests/test_pallas.py
-gives them.
+"""Least times on an H100 for K3-K5 of vbx_tpu/ops/fb_pallas.py (the
+[T, B, S] layout; ported as vbx_tpu_torch/csrc/fb_scan_tbs.cu), at the
+shapes tests/test_pallas.py gives them and at the kernel A/B tool's shape
+(scripts/torch_ab_fb_kernels.py: T=1025, S=31, B=256).
 
     python3 scripts/kernel_bounds.py
 
@@ -9,16 +10,16 @@ The bound of a call is the larger of its bytes over the card's memory rate
 (each input read once, each output written once, float32) and its
 operations over the float32 rate outside the tensor cores. Pure
 arithmetic on shapes: no card is needed, and nothing is measured.
-chip_smoke.py computes the bounds of the ported kernels (K1, K2) from the
-inputs of its own run.
+chip_smoke.py computes the same bounds from the inputs of its own run,
+beside the measured times.
 """
 
 import json
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
-# fb_scan_pallas (T, S, B) in tests/test_pallas.py
-SHAPES = ((40, 5, 3), (600, 31, 4))
+# fb_scan_pallas (T, S, B) in tests/test_pallas.py, then the A/B tool's
+SHAPES = ((40, 5, 3), (600, 31, 4), (1025, 31, 256))
 
 
 def kernel_bytes(T: int, S: int, B: int) -> dict:
@@ -52,10 +53,10 @@ def main() -> int:
             rows.append({"kernel": name, "T,S,B": [T, S, B], "bytes": nbytes,
                          "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations", "ms": "not measured"})
+                         else "operations"})
             print(f"{name} at T,S,B={T},{S},{B}: {nbytes} bytes, bound "
                   f"{max(t_bytes, t_ops) * 1e3:.4f} us "
-                  f"({rows[-1]['bound_by']}); not measured")
+                  f"({rows[-1]['bound_by']})")
     print(json.dumps(rows))
     return 0
 

@@ -7,17 +7,21 @@ This file imports no JAX, so on a CUDA machine without JAX it runs alone:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: tests/test_torch_fb_kernel.py's bars for K1 and
-K2_CARD_BAR below for K2 (a kernel and its twin differ only in summation
-order and FMA contraction).
+Tolerances: tests/test_torch_fb_kernel.py's bars for K1, K2_CARD_BAR
+below for K2, and for K3-K5 ahat and per-frame-normalized bhat 2e-5, cfw
+1e-5 relative (a kernel and its twin differ only in summation order and
+FMA contraction).
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from vbx_tpu_torch.engine.vbhmm import vbx_batched
+from vbx_tpu_torch.engine.vbhmm import vbx_batched, vbx_batched_checkpointed
 from vbx_tpu_torch.ops import fb_kernel
+from vbx_tpu_torch.ops import fb_scan_kernel as fbs
 from vbx_tpu_torch.ops import fb_product_kernel as k2
 from vbx_tpu_torch.parallel import make_mesh, vbx_sharded
 
@@ -180,3 +184,128 @@ def test_sharded_kernel_route_past_k2_cap_raises_on_a_card():
         vbx_sharded(make_mesh(1, 2, devices=["cuda:0"] * 2), *args,
                     loop_prob=0.9, Fa=0.4, Fb=11.0, max_iters=2,
                     fb_impl="pallas")
+
+
+def _scan_case(T, B, S, seed):
+    """Emission weights (max 1 per frame) with lane 0's last speaker absent
+    and, where B > 1, lane 1 ending in a padded suffix (valid = 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    log_p = 3.0 * torch.randn((T, B, S), generator=gen, device="cuda")
+    w = torch.exp(log_p - log_p.amax(-1, keepdim=True))
+    pi = torch.rand((B, S), generator=gen, device="cuda")
+    if S > 1:
+        w[:, 0, -1] = 0.0
+        pi[0, -1] = 0.0
+    pi /= pi.sum(-1, keepdim=True)
+    valid = torch.ones((T, B), device="cuda")
+    if B > 1:
+        valid[T - T // 4:, 1] = 0.0
+    return w, valid, 0.1 * pi + 1e-8, pi + 1e-8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B,S", [(40, 3, 5), (600, 4, 31), (130, 1, 6),
+                                   (90, 7, 33), (60, 5, 64), (50, 6, 128),
+                                   (3, 9, 100), (1, 2, 4)])
+def test_fb_scan_cuda_kernels_match_plain_twins(T, B, S):
+    """K3, K4 and K5 against their twins on the filled weights fb_scan
+    hands them; each wrapper counts its launch. The shapes cover 1, 2 and 4
+    speakers per thread, batches that are no multiple of the 4 lanes per
+    block, and walks shorter than the 4 frames kept in flight."""
+    _need_card()
+    w, valid, col, pinit = _scan_case(T, B, S, seed=T + S)
+    vm = valid[:, :, None]
+    wf = (w * vm + (1 - vm) / S).contiguous()
+    ok = valid.bool()
+
+    def norm(b):
+        return b / b.sum(-1, keepdim=True)
+
+    n3, n4, n5 = (f.launches for f in (fbs.fb_scan_fused, fbs.fb_scan_fwd,
+                                       fbs.fb_scan_bwd))
+    a3, b3 = fbs.fb_scan_fused(wf, col, pinit, 0.9)
+    a4, c4 = fbs.fb_scan_fwd(wf, col, pinit, 0.9)
+    b5 = fbs.fb_scan_bwd(wf, col, 0.9)
+    assert (fbs.fb_scan_fused.launches, fbs.fb_scan_fwd.launches,
+            fbs.fb_scan_bwd.launches) == (n3 + 1, n4 + 1, n5 + 1)
+    ap, cp = fbs.fb_scan_fwd_plain(wf, col, pinit, 0.9)
+    bp = fbs.fb_scan_bwd_plain(wf, col, 0.9)
+    torch.cuda.synchronize()
+    for a in (a3, a4):
+        torch.testing.assert_close(a[ok], ap[ok], atol=2e-5, rtol=0)
+    for b in (b3, b5):
+        torch.testing.assert_close(norm(b)[ok], norm(bp)[ok], atol=2e-5,
+                                   rtol=0)
+    torch.testing.assert_close(c4[ok], cp[ok], rtol=1e-5, atol=0)
+    # the two routes of the API agree with each other on the card
+    f = fbs.fb_scan(w, valid, col, pinit, 0.9, fused=True)
+    t = fbs.fb_scan(w, valid, col, pinit, 0.9, fused=False)
+    torch.testing.assert_close(f[2][ok], t[2][ok], rtol=1e-5, atol=0)
+    torch.testing.assert_close(f[0][ok], t[0][ok], atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+def test_fb_scan_on_a_card_refuses_what_the_kernels_do_not_take():
+    _need_card()
+    S = fbs.S_MAX + 1
+    w = torch.rand((4, 2, S), device="cuda")
+    v = torch.rand((2, S), device="cuda")
+    with pytest.raises(ValueError, match="shard speakers first"):
+        fbs.fb_scan(w, torch.ones((4, 2), device="cuda"), v, v, 0.9)
+    with pytest.raises(ValueError, match="shard speakers first"):
+        fbs.fb_scan_bwd(w, v, 0.9)
+    w = torch.rand((4, 2, 8), device="cuda")
+    with pytest.raises(ValueError, match="contiguous on"):
+        fbs.fb_scan_fused(w, torch.rand((2, 8)), torch.rand((2, 8)), 0.9)
+
+
+@pytest.mark.gpu
+def test_checkpointed_kernel_route_on_a_card_is_bit_equal(tmp_path):
+    """vbx_batched_checkpointed(fb_impl='pallas') on the card, sliced and
+    resumed from its file after a simulated stop, equals the unsliced
+    vbx_batched run bit for bit (same kernels at the same shapes; nothing
+    on the route sums with atomics)."""
+    _need_card()
+    import vbx_tpu_torch.engine.vbhmm as vbhmm_mod
+
+    rng = np.random.default_rng(7)
+    B, T, S, D = 18, 50, 5, 8
+    centers = rng.standard_normal((B, S, D)) * 2.0
+    z = rng.integers(0, S, size=(B, T))
+    X = (centers[np.arange(B)[:, None], z]
+         + rng.standard_normal((B, T, D))).astype(np.float32)
+    phi = rng.uniform(0.5, 5.0, size=D).astype(np.float32)
+    G = rng.dirichlet(np.ones(S), size=(B, T)).astype(np.float32)
+    PI = np.full((B, S), 1.0 / S, np.float32)
+    FM = np.ones((B, T), bool)
+    FM[1, 35:] = False
+    SM = np.ones((B, S), bool)
+    kw = dict(loop_prob=0.9, Fa=0.4, Fb=11.0, max_iters=25, epsilon=1e-5,
+              fb_impl="pallas", device="cuda")
+    ref = vbx_batched(X, phi, G, PI, FM, SM, **kw)
+    ck = str(tmp_path / "vb_state.npz")
+    real = vbhmm_mod.vbx_batched
+    calls = {"n": 0}
+
+    def dying(*a, **k):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise KeyboardInterrupt("simulated stop")
+        return real(*a, **k)
+
+    vbhmm_mod.vbx_batched = dying
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            vbx_batched_checkpointed(X, phi, G, PI, FM, SM, **kw,
+                                     iters_per_slice=4, checkpoint_path=ck)
+    finally:
+        vbhmm_mod.vbx_batched = real
+    assert os.path.exists(ck)
+    out = vbx_batched_checkpointed(X, phi, G, PI, FM, SM, **kw,
+                                   iters_per_slice=4, checkpoint_path=ck)
+    assert not os.path.exists(ck)
+    assert torch.equal(out.n_iters, ref.n_iters)
+    assert torch.equal(out.gamma, ref.gamma)
+    assert torch.equal(out.pi, ref.pi)
+    np.testing.assert_array_equal(out.elbo.cpu().numpy(),
+                                  ref.elbo.cpu().numpy())

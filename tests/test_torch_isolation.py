@@ -54,7 +54,8 @@ def _imports(path):
 @pytest.mark.parametrize("rel", sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "scripts/torch_ab_fb_kernels.py",
+       "scripts/torch_profile.py"]))
 def test_no_jax_or_vbx_tpu_import_in_source(rel):
     for name in _imports(os.path.join(ROOT, rel)):
         top = name.split(".")[0]
@@ -70,7 +71,9 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(tmp_path):
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.device import resolve_device
     from vbx_tpu_torch.engine.pipeline import Diarizer, diarize_ark
-    from vbx_tpu_torch.engine.vbhmm import vbx, vbx_batched
+    from vbx_tpu_torch.engine.debug import vbx_debug
+    from vbx_tpu_torch.engine.vbhmm import (vbx, vbx_batched,
+                                            vbx_batched_checkpointed)
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
@@ -86,6 +89,12 @@ def test_entry_points_raise_without_a_card_unless_given_cpu(tmp_path):
         vbx(X[0], np.ones(3), gamma=g[0])
     assert vbx_batched(*args, max_iters=2, device="cpu").gamma.device.type \
         == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vbx_batched_checkpointed(*args, max_iters=2)
+    assert vbx_batched_checkpointed(*args, max_iters=2, device="cpu"
+                                    ).gamma.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vbx_debug(X[0], np.ones(3, np.float32), g[0], pi[0], max_iters=1)
     plda = (np.zeros(3), np.eye(3), np.ones(3))
     transform = (np.zeros(4), np.eye(4)[:, :3], np.zeros(3))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -111,3 +120,23 @@ def test_full_fp32_guard_turns_tf32_off_and_restores():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_ab_tool_needs_a_card_unless_given_cpu():
+    """scripts/torch_ab_fb_kernels.py runs on the card by default: with no
+    card it fails, naming --device cpu's library form, and with --device cpu
+    it runs the twins at a tiny size and prints both levels."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    script = os.path.join(ROOT, "scripts", "torch_ab_fb_kernels.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, script, "2", "8", "3"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
+    res = subprocess.run([sys.executable, script, "2", "8", "3", "--device",
+                          "cpu"], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "kernel fused=True: median" in res.stdout
+    assert "gamma maxdiff fused vs two-pass" in res.stdout
+    assert "EM(10 iters) structured: median" in res.stdout

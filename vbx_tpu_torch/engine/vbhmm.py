@@ -16,10 +16,11 @@ stepping until its slowest recording converges; converged recordings freeze
 (their state stops changing and their ELBO column is written NaN), which
 reproduces the reference's per-recording early stopping exactly.
 
-Two routes:
+Routes:
 - structured (`vbx`, `vbx_batched(fb_impl=None/'structured')`): the
   sequential smoother of ops.forward_backward at the input dtype (float64
-  available), the reference-exact route;
+  available), the reference-exact route; `fb_impl='assoc'` runs the same
+  loop over the work-parallel associative-scan smoother;
 - kernel (`fb_impl='pallas'` / `'pallas_bf16'`, names kept from vbx_tpu so
   presets and flags are unchanged): float32 EM around the fused CUDA
   forward-backward kernel (ops.fb_kernel), with float32 or bfloat16 streams.
@@ -34,6 +35,7 @@ the results equal an every-iteration check (tests/test_torch_vbhmm.py).
 from __future__ import annotations
 
 import math
+import os
 import warnings
 from typing import NamedTuple, Optional
 
@@ -42,7 +44,8 @@ import torch
 
 from vbx_tpu_torch.device import full_fp32_matmuls, resolve_device
 from vbx_tpu_torch.ops.fb_kernel import S_MAX, fb_scan_sb_logp_bts
-from vbx_tpu_torch.ops.forward_backward import forward_backward_structured
+from vbx_tpu_torch.ops.forward_backward import (
+    forward_backward_assoc, forward_backward_structured)
 from vbx_tpu_torch.ops.lse import NEG_INF, masked_fill
 from vbx_tpu_torch.ops.vb_steps import (
     vb_elbo_model_term, vb_log_likelihoods, vb_m_step, vb_pi_update,
@@ -51,6 +54,10 @@ from vbx_tpu_torch.ops.vb_steps import (
 # EM iterations between the host's "all converged?" checks (device syncs)
 CHECK_EVERY = 4
 
+_FB_IMPLS = {
+    "structured": forward_backward_structured,
+    "assoc": forward_backward_assoc,
+}
 _KERNEL_IMPLS = {"pallas": torch.float32, "pallas_bf16": torch.bfloat16}
 
 
@@ -93,9 +100,11 @@ def _run_em(step, state, max_iters: int):
 def _em_structured(X, phi, gamma, pi, frame_mask, speaker_mask, loop_prob,
                    fa, fb, epsilon, alpha0, invL0, converged0, last_elbo0,
                    plateau_ulps, plateau_iters, plateau0, *, max_iters: int,
-                   has_initial_model: bool) -> VBxResult:
+                   has_initial_model: bool,
+                   fb_impl: str = "structured") -> VBxResult:
     """Batched [B, ...] counterpart of vbx_tpu's `_vbx_jit` under vmap: the
-    sequential smoother at X's dtype, per-lane freezing."""
+    `fb_impl` smoother of _FB_IMPLS at X's dtype, per-lane freezing."""
+    fb_fn = _FB_IMPLS[fb_impl]
     dtype, dev = X.dtype, X.device
     B, T, D = X.shape
 
@@ -126,8 +135,7 @@ def _em_structured(X, phi, gamma, pi, frame_mask, speaker_mask, loop_prob,
             alpha = torch.where(f3, st["alpha"], alpha)
         log_p = vb_log_likelihoods(rho, G, invL, alpha, phi, fa)
         log_p = masked_fill(log_p, smask[:, None, :])
-        fbr = forward_backward_structured(log_p, st["pi"], loop_prob,
-                                          frame_mask=frame_mask)
+        fbr = fb_fn(log_p, st["pi"], loop_prob, frame_mask=frame_mask)
         elbo_val = fbr.log_px + vb_elbo_model_term(invL, alpha, fb)
         new_pi = vb_pi_update(fbr.gamma[:, 0], st["pi"], fbr.pi_stat,
                               loop_prob)
@@ -344,10 +352,11 @@ def vbx(
              the M-step (VBx.py:94).
     device:  'cuda' unless the caller passes 'cpu' (device.resolve_device).
     """
-    if fb_impl != "structured":
+    if fb_impl not in _FB_IMPLS:
         raise ValueError(
-            f"vbx() supports fb_impl='structured'; the fused kernel route "
-            f"is batched-only (use vbx_batched), got {fb_impl!r}")
+            f"vbx() supports fb_impl in {sorted(_FB_IMPLS)}; the fused "
+            f"'pallas' path is batched-only (use vbx_batched), got "
+            f"{fb_impl!r}")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     dtype = dtype or X.dtype
@@ -388,7 +397,8 @@ def vbx(
             torch.full((1,), NEG_INF, dtype=dtype, device=dev),
             plateau_ulps, plateau_iters,
             torch.zeros((1,), dtype=torch.int32, device=dev),
-            max_iters=max_iters, has_initial_model=has_model)
+            max_iters=max_iters, has_initial_model=has_model,
+            fb_impl=fb_impl)
     return VBxResult(*(x[0] for x in res))
 
 
@@ -434,10 +444,11 @@ def vbx_batched(
 
     fb_impl: None/'structured' (default — the sequential smoother at X's
     dtype, float64 included; a recording's result equals its solo run),
-    'pallas' (float32 EM around the fused CUDA forward-backward kernel) or
+    'pallas' (float32 EM around the fused CUDA forward-backward kernel),
     'pallas_bf16' (the same kernel route with the large per-iteration
     streams stored in bfloat16 — float32 accumulation throughout,
-    tolerance-parity only). The kernel holds at most S_MAX = 4096
+    tolerance-parity only) or 'assoc' (the work-parallel associative-scan
+    smoother at X's dtype). The kernel holds at most S_MAX = 4096
     speakers (vbx_tpu's held 256); past that the kernel route raises on a
     card and falls back to 'structured' with a UserWarning on the CPU
     (_over_kernel_capacity). A failed kernel build or launch raises: there
@@ -459,9 +470,9 @@ def vbx_batched(
     gamma = put(gamma)
     B, S = gamma.shape[0], gamma.shape[-1]
     fb_impl = fb_impl or "structured"
-    if fb_impl not in ("structured", *_KERNEL_IMPLS):
-        raise ValueError(f"fb_impl={fb_impl!r} is not ported; use "
-                         f"'structured', 'pallas' or 'pallas_bf16'")
+    if fb_impl not in (*_FB_IMPLS, *_KERNEL_IMPLS):
+        raise ValueError(f"unknown fb_impl={fb_impl!r}; use one of "
+                         f"{sorted((*_FB_IMPLS, *_KERNEL_IMPLS))}")
     if fb_impl in _KERNEL_IMPLS and S > S_MAX:
         fb_impl = _over_kernel_capacity(fb_impl, S, dev)
     kernel = fb_impl in _KERNEL_IMPLS
@@ -488,4 +499,222 @@ def vbx_batched(
         return _em_structured(
             X, *args, None, None, converged0, last_elbo0, plateau_ulps,
             plateau_iters, plateau0, max_iters=max_iters,
-            has_initial_model=False)
+            has_initial_model=False, fb_impl=fb_impl)
+
+
+def vbx_batched_checkpointed(
+    X,
+    phi,
+    gamma,
+    pi,
+    frame_mask,
+    speaker_mask,
+    loop_prob: float,
+    Fa: float,
+    Fb: float,
+    max_iters: int = 40,
+    epsilon: float = 1e-6,
+    fb_impl: Optional[str] = None,
+    iters_per_slice: int = 10,
+    checkpoint_path: Optional[str] = None,
+    mesh=None,
+    plateau_ulps: float = 0.0,
+    plateau_iters: int = 2,
+    device=None,
+) -> VBxResult:
+    """vbx_batched with mid-EM engine-state checkpointing (the reference's
+    only durability is whole files per recording; a preempted long batch
+    here resumes mid-recording).
+
+    `mesh`: a ('dp', 'sp') parallel.Mesh runs every slice through the
+    sharded engine (parallel.vbx_sharded): a preempted slice of hour-long
+    frame-sharded meetings resumes exactly. Under a mesh
+    fb_impl='pallas'/'pallas_bf16' selects the kernel blockwise smoother
+    (tolerance-parity); anything else runs the structured blockwise
+    smoother. The run's tensors then live on the mesh's devices and
+    `device` is ignored.
+
+    The EM runs in host-visible slices of `iters_per_slice` iterations.
+    After each slice the full loop state — (gamma, pi, converged,
+    last_elbo, plateau counter, stitched ELBO trace) — is on the host and,
+    if `checkpoint_path` is given, written atomically (tmp + rename). A
+    rerun with the same arguments loads the file and continues from the
+    last completed slice; the file is removed on successful completion.
+    The file format is vbx_tpu's, key for key (header strings and dtypes
+    included), so a file written by either package resumes in the other.
+
+    Slicing is EXACT, not approximate: the loop state is externalized
+    (vbx_batched's converged0/last_elbo0/plateau0), so a sliced run follows
+    the same trajectory as one long run, bit-identical at a fixed padded
+    shape (tests/test_torch_checkpoint.py).
+
+    vbx_tpu restarts a checkpointed run on the structured engine when its
+    kernel fails to compile at 128 < S <= 256. That has no counterpart
+    here: on a card a kernel build or launch failure raises, as in
+    vbx_batched.
+    """
+    if iters_per_slice < 1:
+        raise ValueError(f"iters_per_slice must be >= 1, got "
+                         f"{iters_per_slice}")
+    dev = mesh.first_device if mesh is not None else resolve_device(device)
+    X = torch.as_tensor(X, device=dev)      # moved once, not once per slice
+    gamma = torch.as_tensor(gamma)
+    B, T, S = gamma.shape
+    x_dt = np.dtype(str(X.dtype).replace("torch.", ""))
+    if (fb_impl or "").startswith("pallas"):
+        # past the kernels' capacity a card raises and the CPU falls back
+        # to 'structured' (_over_kernel_capacity). Resolve that ONCE, before
+        # committing to the kernel route's float32 state dtype and a
+        # '+pallas' checkpoint header: they would quantize a float64
+        # structured trajectory's deltas and misdescribe the run.
+        if mesh is not None:
+            from vbx_tpu_torch.ops.fb_product_kernel import S_MAX as s_cap
+            kernel_name = "operator-product kernel"
+        else:
+            s_cap, kernel_name = S_MAX, "fused kernel"
+        if S > s_cap:
+            _over_kernel_capacity(fb_impl, S, dev, cap=s_cap,
+                                  kernel=kernel_name)
+            fb_impl = None
+    # carry the loop state in the ENGINE dtype: the kernel routes run f32
+    # regardless of input, the structured route runs in X's dtype — an f32
+    # downcast there would quantize sub-f32 ELBO deltas to zero and flag
+    # convergence early
+    fb = fb_impl or "structured"
+    mesh_pallas = mesh is not None and fb in _KERNEL_IMPLS
+    if mesh is not None:
+        fb = (f"sharded[{','.join(f'{k}={v}' for k, v in mesh.shape.items())}]"
+              + (f"+{fb_impl}" if mesh_pallas else ""))
+        dt = np.dtype(np.float32) if mesh_pallas else x_dt
+    else:
+        dt = np.dtype(np.float32) if fb.startswith("pallas") else x_dt
+    it_done = 0
+    elbo_full = np.full((B, max_iters), np.nan, dt)
+    converged = np.zeros((B,), bool)
+    last_elbo = np.full((B,), NEG_INF, dt)
+    plateau = np.zeros((B,), np.int32)
+    g_cur = gamma
+    pi_cur = torch.as_tensor(pi)
+
+    # the hyperparameters that define the trajectory: a checkpoint from a
+    # differently-configured run must not silently resume
+    header = {"shape": np.array([B, T, S]), "fb_impl": np.str_(fb),
+              "dtype": np.str_(dt.name),
+              "hp": np.array([float(loop_prob), float(Fa), float(Fb),
+                              float(epsilon), float(max_iters),
+                              float(plateau_ulps), float(plateau_iters)])}
+
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        with np.load(checkpoint_path) as ck:
+            for key, want in header.items():
+                got = ck[key] if key in ck.files else None
+                if (key == "hp" and got is not None
+                        and np.asarray(got).shape == (5,)
+                        and plateau_ulps == 0.0 and plateau_iters == 2):
+                    # early checkpoints carried a 5-element hp (no plateau
+                    # fields) and no 'plateau' array; they resume under the
+                    # implied defaults (plateau off) rather than forcing a
+                    # preempted long run back to iteration 0
+                    want = np.asarray(want)[:5]
+                if got is None or np.asarray(got).shape != np.asarray(
+                        want).shape or not np.all(np.asarray(got) == want):
+                    raise ValueError(
+                        f"checkpoint {checkpoint_path} was written by a "
+                        f"differently-configured run ({key}: {got!r} != "
+                        f"{want!r}); delete it or use a distinct path")
+            it_done = int(ck["it_done"])
+            elbo_full[:, :it_done] = ck["elbo"][:, :it_done]
+            converged = ck["converged"]
+            last_elbo = ck["last_elbo"].astype(dt)
+            plateau = (ck["plateau"].astype(np.int32)
+                       if "plateau" in ck.files
+                       else np.zeros((B,), np.int32))
+            g_cur = torch.from_numpy(ck["gamma"])
+            pi_cur = torch.from_numpy(ck["pi"])
+
+    while it_done < max_iters and not converged.all():
+        k = min(iters_per_slice, max_iters - it_done)
+        resume = dict(converged0=torch.from_numpy(converged),
+                      last_elbo0=torch.from_numpy(last_elbo),
+                      plateau_ulps=plateau_ulps, plateau_iters=plateau_iters,
+                      plateau0=torch.from_numpy(plateau))
+        if mesh is not None:
+            from vbx_tpu_torch.parallel.engine import vbx_sharded
+            res = vbx_sharded(
+                mesh, X, phi, g_cur, pi_cur, frame_mask, speaker_mask,
+                loop_prob=loop_prob, Fa=Fa, Fb=Fb, max_iters=k,
+                epsilon=epsilon, fb_impl=(fb_impl if mesh_pallas else None),
+                **resume)
+        else:
+            res = vbx_batched(
+                X, phi, g_cur, pi_cur, frame_mask, speaker_mask, loop_prob,
+                Fa, Fb, max_iters=k, epsilon=epsilon, fb_impl=fb_impl,
+                device=dev, **resume)
+        g_cur, pi_cur = res.gamma, res.pi
+        elbo_k = res.elbo.cpu().numpy().astype(dt, copy=False)   # [B, k]
+        n_k = np.sum(~np.isnan(elbo_k), axis=1)            # per-rec iters
+        elbo_full[:, it_done:it_done + k] = elbo_k
+        ran = n_k > 0
+        idx = np.arange(B)
+        new_last = elbo_k[idx, np.maximum(n_k - 1, 0)]
+        # the engine freezes a recording on the iteration AFTER its
+        # crossing delta, so convergence exactly equals "the last recorded
+        # delta is below epsilon" — recompute it on host (same engine-dtype
+        # values the device compared) because a recording that crosses on
+        # the slice's final iteration is otherwise indistinguishable from
+        # one still running (n_k == k either way)
+        prev_of_last = np.where(
+            n_k >= 2, elbo_k[idx, np.maximum(n_k - 2, 0)], last_elbo)
+        last_delta = new_last - prev_of_last               # engine dtype
+        converged_new = (ran & (n_k < k)) \
+            | (ran & (last_delta < dt.type(epsilon)))
+        if plateau_ulps > 0:
+            # replay the engine's counter over this slice's recorded
+            # deltas (same engine-dtype values, same operation grouping as
+            # _plateau_step) — needed for the same reason as last_delta: a
+            # lane whose plateau fires on the slice's final iteration has
+            # n_k == k, and the counter must carry into the next slice
+            was_conv = converged
+            c = plateau.copy()
+            prev = last_elbo.copy()
+            eps_m = dt.type(np.finfo(dt).eps)
+            pu = dt.type(plateau_ulps)
+            for j in range(k):
+                active = (~was_conv) & (n_k > j)
+                cur = elbo_k[:, j]
+                quantum = eps_m * np.maximum(np.abs(cur), dt.type(1.0))
+                small = np.abs((cur - prev).astype(dt)) <= pu * quantum
+                c = np.where(active, np.where(small, c + 1, 0), c)
+                prev = np.where(active, cur, prev)
+            plateau = c.astype(np.int32)
+            converged_new |= ran & (plateau >= plateau_iters)
+        converged = converged | converged_new
+        last_elbo = np.where(ran, new_last, last_elbo)
+        it_done += k
+        if checkpoint_path:
+            tmp = checkpoint_path + ".tmp.npz"   # .npz: savez won't rename
+            np.savez(tmp, gamma=g_cur.cpu().numpy(),
+                     pi=pi_cur.cpu().numpy(), converged=converged,
+                     last_elbo=last_elbo, plateau=plateau,
+                     elbo=elbo_full, it_done=it_done,
+                     **header)
+            os.replace(tmp, checkpoint_path)
+
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        os.remove(checkpoint_path)
+
+    n_iters = np.sum(~np.isnan(elbo_full), axis=1).astype(np.int32)
+
+    # final speaker model recomputed from the FINAL responsibilities (the
+    # kernel route's convention): a recording frozen in an earlier slice
+    # would otherwise surface that slice's — or no — model. Both this and
+    # the crossing-iteration model are valid converged models and agree to
+    # within the convergence tolerance.
+    phi = torch.as_tensor(phi, device=dev).to(X.dtype)
+    g_cur = g_cur.to(dev)
+    with full_fp32_matmuls():
+        _, rho = vb_precompute(X, phi)
+        invL_f, alpha_f = vb_m_step(g_cur.to(X.dtype), rho, phi, Fa / Fb)
+    return VBxResult(g_cur, pi_cur.to(dev),
+                     torch.from_numpy(elbo_full).to(dev),
+                     torch.from_numpy(n_iters).to(dev), alpha_f, invL_f)

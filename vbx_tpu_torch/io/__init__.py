@@ -13,3 +13,4 @@ from vbx_tpu_torch.io.segments import (  # noqa: F401
     read_segments, read_xvector_timing_dict, write_segments,
 )
 from vbx_tpu_torch.io.transform import read_xvec_transform  # noqa: F401
+from vbx_tpu_torch.io.uem import read_uem, write_uem  # noqa: F401

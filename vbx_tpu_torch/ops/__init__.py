@@ -1,3 +1,4 @@
-"""Compute ops of the port: VB E/M-steps, the structured scaled
-forward-backward smoother, the fused forward-backward CUDA kernel with its
-plain twin, pairwise similarities and score calibration."""
+"""Compute ops of the port: VB E/M-steps, the structured, dense and
+associative-scan forward-backward smoothers, the forward-backward CUDA
+kernels with their plain twins, pairwise similarities and score
+calibration."""

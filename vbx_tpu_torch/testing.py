@@ -22,6 +22,7 @@ import numpy as np
 
 from vbx_tpu_torch.io.ark import write_vec_ark
 from vbx_tpu_torch.io.hdf5 import write_datasets
+from vbx_tpu_torch.io.rttm import merge_adjacent_labels, write_rttm
 from vbx_tpu_torch.io.segments import write_segments
 
 X_SHIFT = 0.24     # seconds between consecutive x-vectors
@@ -135,6 +136,19 @@ def write_corpus(out_dir: str, seed: int, lengths: Sequence[int],
     write_vec_ark(paths["ark"], records)
     write_segments(paths["segments"], rows)
     return {**paths, "truth": truth, "models": (plda, transform)}
+
+
+def write_truth_rttms(out_dir: str, truth: Dict[str, np.ndarray]) -> None:
+    """One `<recording>.rttm` per entry of write_corpus's "truth", from the
+    true speaker index of every x-vector and the corpus's segment times
+    (merged as the pipeline merges its own labels), for the scorer."""
+    os.makedirs(out_dir, exist_ok=True)
+    for rec, z in truth.items():
+        start = np.round(np.arange(len(z)) * X_SHIFT, 3)
+        starts, ends, labels = merge_adjacent_labels(
+            start, np.round(start + X_WINDOW, 3), z)
+        write_rttm(os.path.join(out_dir, f"{rec}.rttm"), rec, starts, ends,
+                   labels)
 
 
 def frame_agreement(ref: np.ndarray, hyp: np.ndarray) -> float:
