@@ -12,14 +12,23 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
 3. kernel phase: each kernel against its plain PyTorch twin on the card,
    float32 and bfloat16 streams. K1 (fb_fused_sb) at the bench shape
    (B=256, T=1025, S=31) and at CHECK_SHAPES (S from 8 to 4096, the main
-   path's largest bucket, and, with skip_dead, a random boundary message
-   and all-zero padded frames, the bench shape and the mesh path's shard
-   shape B=4, T=8192, S=8), with the tolerances of
-   tests/test_torch_fb_kernel.py. K2 (fb_fwd_product_sb) at K2_SHAPES
-   (the mesh path's shard shape B=4, Tb=8192, S=8, R=16 with two trailing
-   dead segments on one lane; S=31; S=128), with the tolerance of
-   tests/test_torch_gpu.py. CUDA-event times (median of 25 launches),
-   the twin's time, and the bytes/operations bound;
+   path's largest bucket, with skip_dead, a random boundary message and
+   all-zero padded frames the bench shape and the mesh path's shard shape
+   B=4, T=8192, S=8, and what the kernel's design can get wrong: every
+   group shape with a ragged edge, T of 1-3 frames and just under and over
+   one staged chunk, batches that do not fill a warp, lanes that start at
+   odd byte offsets, leading dead frames and an all-dead lane, frames whose
+   sum is under the 1e-37 floor), with the tolerances of
+   tests/test_torch_fb_kernel.py; K1 again at the solo long-recording
+   shape B=4, T=32768, S=8 (timed, float32 held to its twin); and lanes
+   of a B=256 launch bit-equal to the same lanes launched alone and among
+   other neighbours. K2 (fb_fwd_product_sb) at K2_SHAPES (the mesh path's
+   shard shape B=4, Tb=8192, S=8, R=16 with two trailing dead segments on
+   one lane; S=31; S=128; a segment shorter than one staged chunk and one
+   that is no multiple of it), with the tolerance of
+   tests/test_torch_gpu.py, and its rows bit-equal whatever lanes share
+   the launch. CUDA-event times (median of 25 launches), the twin's time,
+   and the bytes/operations bound;
 4. main path: a synthetic corpus of 64 recordings (T 500-2000 x-vectors,
    256-d, 2-6 speakers, vbx_tpu_torch.testing) through
    engine.pipeline.diarize_ark on cuda, once with fb_impl='pallas' and
@@ -160,7 +169,15 @@ def _host_ms(fn, n: int = 3) -> float:
 # main path's largest bucket (S_pad 8, T_pad 2048, lanes of 500-2048 valid
 # frames followed by the uniform padded suffix); and the mesh path's mode
 # (skip_dead, all-zero padded frames, a random boundary message) at the
-# bench shape and at the mesh path's shard shape.
+# bench shape and at the mesh path's shard shape. Then what the kernel's
+# design can get wrong: each group shape (threads per lane x speakers per
+# thread, from S) with a ragged last thread and a batch that does not fill
+# its warps (S=1: 32 lanes a warp, S=2: 32, S=9: 8, S=33: 2); walks of 1-3
+# frames; walks one frame under and over one staged chunk (S=31: 64 frames
+# in float32, 128 in bfloat16); odd T with odd S, where bfloat16 lanes start
+# 2 bytes off a 16-byte boundary; with skip_dead, lane 0 starting with dead
+# frames and the last lane all dead; and two frames of lane 0 scaled by
+# 1e-38, so that their sums lie under the 1e-37 floor.
 CHECK_SHAPES = (("S8", 32, 400, 8, "one", False),
                 ("S64", 32, 400, 64, "one", False),
                 ("S256", 32, 400, 256, "one", False),
@@ -168,35 +185,55 @@ CHECK_SHAPES = (("S8", 32, 400, 8, "one", False),
                 ("S4096", 4, 200, 4096, "one", False),
                 ("bucket", 64, 2048, 8, "all", False),
                 ("bench_skip_dead", 256, 1025, 31, "one", True),
-                ("shard_skip_dead", 4, 8192, 8, "shard", True))
+                ("shard_skip_dead", 4, 8192, 8, "shard", True),
+                ("S1", 37, 40, 1, "one", False),
+                ("S2", 37, 40, 2, "one", False),
+                ("S9", 7, 130, 9, "one", False),
+                ("S33", 5, 70, 33, "one", False),
+                ("T1", 3, 1, 31, "one", False),
+                ("T2", 3, 2, 31, "one", False),
+                ("T3", 5, 3, 8, "one", False),
+                ("chunk_f32_minus_1", 5, 63, 31, "one", False),
+                ("chunk_f32_plus_1", 5, 65, 31, "one", False),
+                ("chunk_bf16_minus_1", 5, 127, 31, "one", False),
+                ("chunk_bf16_plus_1", 5, 129, 31, "one", False),
+                ("odd_T_odd_S", 9, 77, 5, "one", False),
+                ("dead_lead", 6, 300, 8, "dead", True),
+                ("floor", 4, 200, 8, "floor", False))
 
 
 def kernel_case(B, T, S, io, padded, seed, skip_dead=False):
     """random_hmm_problem-like inputs on the card: log-likelihoods, one
-    lane with two absent speakers, and padded frames: lane 1 short by T/5
-    ('one'); every lane of a random length in [500, T] ('all'); or lane 1
-    short by 40% and lane 3 all padding, as shards of a long recording's
-    tail are ('shard'). Padded frames are the engine's uniform suffix of
-    1/S, or all zero with skip_dead, which also draws a random
-    non-uniform boundary message binit (the mesh path's mode)."""
+    lane with two absent speakers (where S > 2), and padded frames: lane 1
+    short by T/5 ('one', 'floor'); every lane of a random length in
+    [500, T] ('all'); lane 1 short by 40% and lane 3 all padding, as
+    shards of a long recording's tail are ('shard'); or lane 0's first 5
+    frames and the whole last lane ('dead'). Padded frames are the
+    engine's uniform suffix of 1/S, or all zero with skip_dead, which also
+    draws a random non-uniform boundary message binit (the mesh path's
+    mode). 'floor' scales two valid frames of lane 0 by 1e-38."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     log_p = 3.0 * torch.randn((B, T, S), generator=gen, device="cuda") - 30
     smask = torch.ones((B, S), device="cuda")
     gone = min(2, B - 1)
-    smask[gone, -2:] = 0
-    log_p[gone, :, -2:] = -1e30
+    if S > 2:
+        smask[gone, -2:] = 0
+        log_p[gone, :, -2:] = -1e30
     if padded == "all":
         lengths = torch.randint(500, T + 1, (B,), generator=gen,
                                 device="cuda")
     else:
         lengths = torch.full((B,), T, device="cuda")
-        lengths[1] = T - (T // 5 if padded == "one" else 2 * T // 5)
+        lengths[1] = T - (2 * T // 5 if padded == "shard" else T // 5)
         if padded == "shard":
             lengths[3] = 0
     valid = (torch.arange(T, device="cuda")[:, None]
              < lengths[None, :]).float()                            # [T, B]
+    if padded == "dead":
+        valid[:5, 0] = 0.0
+        valid[:, B - 1] = 0.0
     pi = torch.rand((B, S), generator=gen, device="cuda") * smask
     pi /= pi.sum(-1, keepdim=True)
     lp = 0.99
@@ -210,6 +247,8 @@ def kernel_case(B, T, S, io, padded, seed, skip_dead=False):
     else:
         w = w + (1 - vm) / S
         binit = torch.full((B, S), 1.0 / S, device="cuda")
+    if padded == "floor":
+        w[0, T // 3:T // 3 + 2] *= 1e-38
     return dict(w=w.to(io).contiguous(),
                 col=((1 - lp) * pi + 1e-8).contiguous(),
                 pinit=(pi + 1e-8).contiguous(), binit=binit.contiguous(),
@@ -226,9 +265,12 @@ def kernel_errors(case, io_name):
     w, valid, m = case["w"], case["valid"], case["m"]
     args = (w, case["col"], case["pinit"], case["binit"], case["lp"])
     k = fb_kernel.fb_fused_sb(*args, recip=True, skip_dead=case["skip_dead"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     p = fb_kernel.fb_fused_sb_plain(*args, recip=True,
                                     skip_dead=case["skip_dead"])
     torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
 
     def assemble(ahat, bhat, cfw):
         a, b = ahat.float(), bhat.float()
@@ -249,13 +291,15 @@ def kernel_errors(case, io_name):
     if case["skip_dead"] and not torch.all(k[2][~vmask] == 1.0):
         return {}, ["cfw at skipped frames"]
     err = {
+        "plain_ms": plain_ms,
         "ahat": (k[0].float() - p[0].float()).abs()[vmask].max().item(),
         "bhat_normalized": (bk - bp).abs()[vmask].max().item(),
         "gamma": (gk - gp).abs().max().item(),
         "cfw_rel": ((k[2] - p[2]).abs() / p[2])[vmask].max().item(),
         "log_px_rel": ((lk - lpp).abs() / lpp.abs().clamp(min=1.0)
                        ).max().item(),
-        "pi_stat_over_max": ((pk - pp).abs().max() / pp.abs().max()).item(),
+        "pi_stat_over_max": ((pk - pp).abs().max()
+                             / pp.abs().max().clamp(min=1e-30)).item(),
     }
     gtol, ltol, ptol = BARS[io_name]
     bad = [name for name, val, bar in (
@@ -264,6 +308,82 @@ def kernel_errors(case, io_name):
         ("log_px", err["log_px_rel"], ltol),
         ("pi_stat", err["pi_stat_over_max"], ptol)) if not val <= bar]
     return err, bad
+
+
+def k1_bound(B, T, S, esize) -> dict:
+    """The least time the card could take for one fb_fused_sb call: read w
+    once, write ahat / bhat once (stream type) and cfw (float32), read
+    col / pinit / binit (float32); ~12 float32 operations per (lane, frame,
+    speaker) across both chains. scripts/kernel_bounds.py computes the
+    same from the shapes alone."""
+    bytes_moved = 3 * B * T * S * esize + B * T * 4 + 3 * B * S * 4
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 12 * B * T * S / F32_OPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def k1_batch_invariance(case) -> dict:
+    """Lanes of one launch against the same lanes launched alone and among
+    other neighbours (at another place in the batch): every output must be
+    bit-equal, because the group that holds a lane depends on S only."""
+    import torch
+
+    from vbx_tpu_torch.ops import fb_kernel
+
+    names = ("w", "col", "pinit", "binit")
+    B = case["w"].shape[0]
+
+    def run(idx=None):
+        args = [case[n] if idx is None else case[n][idx].contiguous()
+                for n in names]
+        return fb_kernel.fb_fused_sb(*args, case["lp"], recip=True,
+                                     skip_dead=case["skip_dead"])
+
+    full = run()
+    lanes = sorted({0, 1, B // 2 + 2, B - 1})
+    for i in lanes:
+        alone = run(slice(i, i + 1))
+        among = run(torch.tensor([(7 * i + 3) % B, i, (i + 101) % B,
+                                  5 % B, (B - 6) % B], device="cuda"))
+        torch.cuda.synchronize()
+        for name, f, a, m in zip(("ahat", "bhat", "cfw"), full, alone, among):
+            if not (torch.equal(f[i], a[0]) and torch.equal(f[i], m[1])):
+                fail(f"fb_fused_sb {case['w'].dtype}: {name} of lane {i} in "
+                     f"a batch of {B} differs from the lane launched alone "
+                     f"or among other neighbours")
+    return {"lanes": lanes, "batch": B, "bit_equal": True}
+
+
+LONG = dict(B=4, T=32768, S=8)     # the solo long-recording K1 shape
+
+
+def long_shape(io_name: str) -> dict:
+    """fb_fused_sb at the solo long-recording shape (the mesh corpus's
+    padded batch on one device): timed, with its bound; in float32 also
+    held to its plain twin (one run of the twin, whose time is taken)."""
+    import torch
+
+    from vbx_tpu_torch.ops import fb_kernel
+
+    B, T, S = LONG["B"], LONG["T"], LONG["S"]
+    case = kernel_case(B, T, S, getattr(torch, io_name), "one", seed=77)
+    args = (case["w"], case["col"], case["pinit"], case["binit"], case["lp"])
+    out = {"name": f"fb_fused_sb[{io_name}] at B,T,S={B},{T},{S}",
+           "route": "cuda", "source": "vbx_tpu_torch/csrc/fb_fused_sb.cu",
+           "replaces": "vbx_tpu/ops/fb_pallas.py:198", "launches": None,
+           "library_ms": None, "shape": [B, T, S],
+           **k1_bound(B, T, S, case["w"].element_size())}
+    if io_name == "float32":
+        err, bad = kernel_errors(case, io_name)
+        if bad:
+            fail(f"fb_fused_sb {io_name} at B={B}, T={T}, S={S} disagrees "
+                 f"with its plain twin on {bad}: {err}")
+        out.update(max_abs_err=max(err["ahat"], err["bhat_normalized"],
+                                   err["gamma"]),
+                   plain_ms=err["plain_ms"], checks={"long": err})
+    out["ms"] = _cuda_ms(lambda: fb_kernel.fb_fused_sb(*args, recip=True))
+    return out
 
 
 def kernel_phase(io_name: str) -> dict:
@@ -291,14 +411,7 @@ def kernel_phase(io_name: str) -> dict:
     ms = _cuda_ms(lambda: fb_kernel.fb_fused_sb(*args, recip=True))
     plain_ms = _host_ms(lambda: fb_kernel.fb_fused_sb_plain(*args,
                                                             recip=True))
-    # bound: read w once, write ahat/bhat once (stream type) and cfw
-    # (f32), read col/pinit/binit (f32); ~12 float32 operations per
-    # (lane, frame, speaker) across both chains
-    esize = w.element_size()
-    bytes_moved = 3 * B * T * S * esize + B * T * 4 + 3 * B * S * 4
-    ops = 12 * B * T * S
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    invariance = k1_batch_invariance(bench)
     return {"name": f"fb_fused_sb[{io_name}]", "route": "cuda",
             "source": "vbx_tpu_torch/csrc/fb_fused_sb.cu",
             "replaces": "vbx_tpu/ops/fb_pallas.py:198",
@@ -306,18 +419,20 @@ def kernel_phase(io_name: str) -> dict:
             "max_abs_err": max(max(c["ahat"], c["bhat_normalized"],
                                    c["gamma"]) for c in checks.values()),
             "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **k1_bound(B, T, S, w.element_size()),
             # no single PyTorch call computes this smoother
-            "library_ms": None,
-            "checks": checks, "bytes": bytes_moved, "shape": [B, T, S]}
+            "library_ms": None, "batch_invariance": invariance,
+            "checks": checks, "shape": [B, T, S]}
 
 
 # K2 shapes: (name, B, Tb, S, R). The mesh path's shard shape (a T_pad
 # 32768 bucket over 4 'sp' shards: B=4, Tb=8192, S_pad 8, R=16 segments of
-# Ts=512 by parallel.fb_blockwise._auto_segments), then S=31 and S=128.
+# Ts=512 by parallel.fb_blockwise._auto_segments), then S=31 and S=128, a
+# segment shorter than one staged chunk (S=8: 64 frames) and one that is no
+# multiple of it.
 K2_SHAPES = (("shard", 4, 8192, 8, 16), ("S31", 4, 2048, 31, 4),
-             ("S128", 2, 1024, 128, 2))
+             ("S128", 2, 1024, 128, 2), ("short_segment", 3, 96, 8, 4),
+             ("ragged_segment", 2, 300, 8, 3))
 
 
 def k2_case(B, Tb, S, R, io, seed):
@@ -343,6 +458,19 @@ def k2_case(B, Tb, S, R, io, seed):
     finit = (lp * eye + col[:, None, :]).expand(R, B, S, S).clone()
     finit[0] = eye
     return dict(w=w.to(io).contiguous(), col=col, finit=finit, lp=lp, R=R)
+
+
+def k2_bound(B, Tb, S, R, esize) -> dict:
+    """The least time the card could take for one fb_fwd_product_sb call:
+    read w, col and finit once, write fhat and ls once; ~5 float32
+    operations per (lane, row, frame, speaker). scripts/kernel_bounds.py
+    computes the same from the shapes alone."""
+    bytes_moved = (B * Tb * S * esize + B * S * 4 + 2 * R * B * S * S * 4
+                   + R * B * S * 4)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 5 * B * Tb * S * S / F32_OPS_PER_S * 1e3
+    return {"bytes": bytes_moved, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def k2_phase(io_name: str) -> dict:
@@ -375,20 +503,26 @@ def k2_phase(io_name: str) -> dict:
             fail(f"fb_fwd_product_sb {io_name} at {name} (B={B}, Tb={Tb}, "
                  f"S={S}, R={R}) disagrees with its plain twin on {bad}: "
                  f"{err}")
+        # rows of a lane launched alone, and with the lanes in another
+        # order, must be bit-equal to its rows in the full launch
+        w, col, finit, lp = args
+        back = torch.arange(B - 1, -1, -1, device="cuda")
+        fr, lr = k2.fb_fwd_product_sb(w[back].contiguous(), col[back]
+                                      .contiguous(),
+                                      finit[:, back].contiguous(), lp)
+        fa, la = k2.fb_fwd_product_sb(w[:1], col[:1],
+                                      finit[:, :1].contiguous(), lp)
+        torch.cuda.synchronize()
+        if not (torch.equal(fr[:, back], fk) and torch.equal(lr[:, back], lk)
+                and torch.equal(fa[:, 0], fk[:, 0])
+                and torch.equal(la[:, 0], lk[:, 0])):
+            fail(f"fb_fwd_product_sb {io_name} at {name}: a lane's rows "
+                 f"depend on the lanes it is launched with")
         ms = _cuda_ms(lambda: k2.fb_fwd_product_sb(*args))
         plain_ms = _host_ms(lambda: k2.fb_fwd_product_sb_plain(*args))
-        # bound: read w, col and finit once, write fhat and ls once; ~5
-        # float32 operations per (segment, lane, row, frame, speaker)
-        esize = case["w"].element_size()
-        bytes_moved = (B * Tb * S * esize + B * S * 4 + 2 * R * B * S * S * 4
-                       + R * B * S * 4)
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = 5 * B * Tb * S * S / F32_OPS_PER_S * 1e3
         checks[name] = {"shape": [B, Tb, S, R], **err, "ms": ms,
-                        "plain_ms": plain_ms, "bytes": bytes_moved,
-                        "bound_ms": max(t_bytes, t_ops),
-                        "bound_by": ("bytes" if t_bytes >= t_ops
-                                     else "operations")}
+                        "plain_ms": plain_ms,
+                        **k2_bound(B, Tb, S, R, case["w"].element_size())}
     main = checks["shard"]
     return {"name": f"fb_fwd_product_sb[{io_name}]", "route": "cuda",
             "source": "vbx_tpu_torch/csrc/fb_fwd_product_sb.cu",
@@ -567,9 +701,8 @@ def wide_ms() -> dict:
     case = kernel_case(B, T, S, torch.float32, "one", seed=99)
     args = (case["w"], case["col"], case["pinit"], case["binit"], case["lp"])
     ms = _cuda_ms(lambda: fb_kernel.fb_fused_sb(*args, recip=True))
-    bytes_moved = 3 * B * T * S * 4 + B * T * 4 + 3 * B * S * 4
     return {"shape": [B, T, S], "ms": ms,
-            "bound_ms": bytes_moved / HBM_BYTES_PER_S * 1e3}
+            "bound_ms": k1_bound(B, T, S, 4)["bound_ms"]}
 
 
 def diarize(corpus, out_dir, config, device, fb_impl=None, mesh=None):
@@ -1103,7 +1236,20 @@ def main() -> int:
         print(f"kernel {k['name']}: max_abs_err {k['max_abs_err']:.3g}; "
               f"{k['ms']:.4f} ms (median of 25, CUDA events) vs plain twin "
               f"{k['plain_ms']:.1f} ms; bound {k['bound_ms'] * 1e3:.1f} us "
-              f"({k['bound_by']}, {k['bytes'] / 1e6:.1f} MB)")
+              f"({k['bound_by']}, {k['bytes'] / 1e6:.1f} MB); lanes "
+              f"{k['batch_invariance']['lanes']} of the batch of "
+              f"{k['batch_invariance']['batch']} bit-equal to the same lanes "
+              f"launched alone and among other neighbours")
+    long_k1 = long_shape("float32")
+    long_bf16 = long_shape("bfloat16")
+    print(f"kernel {long_k1['name']} (the solo long recording): "
+          f"{json.dumps(long_k1['checks']['long'])}")
+    print(f"kernel {long_k1['name']}: {long_k1['ms']:.4f} ms (median of 25) "
+          f"vs plain twin {long_k1['plain_ms']:.1f} ms (one run); bound "
+          f"{long_k1['bound_ms'] * 1e3:.2f} us ({long_k1['bound_by']}, "
+          f"{long_k1['bytes'] / 1e6:.2f} MB); bfloat16 streams "
+          f"{long_bf16['ms']:.4f} ms, bound "
+          f"{long_bf16['bound_ms'] * 1e3:.2f} us")
     wide = wide_ms()
     print(f"kernel fb_fused_sb[float32], several-warp instance at "
           f"B,T,S={wide['shape']}: {wide['ms']:.4f} ms (median of 25), "
@@ -1118,7 +1264,8 @@ def main() -> int:
               f"{k['ms']:.4f} ms (median of 25, CUDA events) vs plain twin "
               f"{k['plain_ms']:.1f} ms; bound {k['bound_ms'] * 1e3:.2f} us "
               f"({k['bound_by']}, {k['bytes'] / 1e6:.2f} MB) at "
-              f"B,Tb,S,R={k['shape']}")
+              f"B,Tb,S,R={k['shape']}; a lane's rows bit-equal alone and "
+              f"with the lanes in another order at every shape")
 
     scan = scan_phase()
     for k in scan:
@@ -1174,6 +1321,8 @@ def main() -> int:
         mp = mesh_path(work)
     kernels[2]["launches"] = mp["1x4_pallas"]["k2_launches"]
     kernels[3]["launches"] = mp["1x4_pallas_bf16"]["k2_launches"]
+    # K1 at the long shape: the solo run of the mesh corpus launches it
+    long_k1["launches"] = mp["solo_pallas"]["k1_launches"]
     print(f"mesh corpus: {len(MESH_LENGTHS)} recordings of "
           f"{list(MESH_LENGTHS)} x-vectors, {MESH_SPEAKERS} speakers, "
           f"written in {mp['corpus']['write_s']:.1f} s")
@@ -1203,6 +1352,7 @@ def main() -> int:
     for k in scan:
         k["launches"] = dp["launches"][k["name"]]
     kernels += scan
+    kernels.append(long_k1)
     ab = dp["ab"]
     print(f"A/B tool at B,T,S,D={ab['shape']} ({dp['ab_s']:.1f} s): fb_scan "
           f"fused {ab['kernel_fused_ms']:.4f} ms, two-pass "

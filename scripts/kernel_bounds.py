@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
-"""Least times on an H100 for K3-K5 of vbx_tpu/ops/fb_pallas.py (the
-[T, B, S] layout; ported as vbx_tpu_torch/csrc/fb_scan_tbs.cu), at the
-shapes tests/test_pallas.py gives them and at the kernel A/B tool's shape
+"""Least times on an H100 for the kernels of vbx_tpu/ops/fb_pallas.py as
+ported: K1 (the fused [B, T, S] walk, vbx_tpu_torch/csrc/fb_fused_sb.cu)
+at the bench shape and the solo long-recording shape, K2 (the
+block-operator walk, csrc/fb_fwd_product_sb.cu) at chip_smoke.py's shapes,
+and K3-K5 (the [T, B, S] layout, csrc/fb_scan_tbs.cu) at the shapes
+tests/test_pallas.py gives them and at the kernel A/B tool's shape
 (scripts/torch_ab_fb_kernels.py: T=1025, S=31, B=256).
 
     python3 scripts/kernel_bounds.py
@@ -42,10 +45,52 @@ def kernel_bytes(T: int, S: int, B: int) -> dict:
 # chains as K1's (~12), one chain for each two-pass kernel (~6)
 OPS_PER_ELEMENT = {"K3 _fused_kernel": 12, "K4 _fwd_kernel": 6,
                    "K5 _bwd_kernel": 6}
+# K1 (B, T, S): the bench shape and the solo long recording
+K1_SHAPES = ((256, 1025, 31), (4, 32768, 8))
+# K2 (B, Tb, S, R): chip_smoke.py's K2_SHAPES
+K2_SHAPES = ((4, 8192, 8, 16), (4, 2048, 31, 4), (2, 1024, 128, 2),
+             (3, 96, 8, 4), (2, 300, 8, 3))
+
+
+def k1_bound(B: int, T: int, S: int, esize: int) -> dict:
+    """K1 _fused_kernel_sb: w [B, T, S] (esize bytes a value) in, ahat and
+    bhat out in the same type, cfw [B, T] float32 out, col / pinit / binit
+    [B, S] float32 in; ~12 float32 operations per (lane, frame, speaker)."""
+    nbytes = 3 * B * T * S * esize + B * T * 4 + 3 * B * S * 4
+    return _bound(nbytes, 12 * B * T * S)
+
+
+def k2_bound(B: int, Tb: int, S: int, R: int, esize: int) -> dict:
+    """K2 _fwd_product_kernel_sb: w [B, Tb, S] and col [B, S] in, finit
+    [R, B, S, S] in and fhat out, ls [R, B, S] out (float32 but w); ~5
+    float32 operations per (lane, row, frame, speaker)."""
+    nbytes = (B * Tb * S * esize + B * S * 4 + 2 * R * B * S * S * 4
+              + R * B * S * 4)
+    return _bound(nbytes, 5 * B * Tb * S * S)
+
+
+def _bound(nbytes: int, ops: int) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def main() -> int:
     rows = []
+    for esize, io in ((4, "float32"), (2, "bfloat16")):
+        for B, T, S in K1_SHAPES:
+            rows.append({"kernel": f"K1 _fused_kernel_sb {io}",
+                         "B,T,S": [B, T, S], **k1_bound(B, T, S, esize)})
+        for B, Tb, S, R in K2_SHAPES:
+            rows.append({"kernel": f"K2 _fwd_product_kernel_sb {io}",
+                         "B,Tb,S,R": [B, Tb, S, R],
+                         **k2_bound(B, Tb, S, R, esize)})
+    for r in rows:
+        shape = next(f"{k}={','.join(map(str, v))}" for k, v in r.items()
+                     if k.startswith("B,"))
+        print(f"{r['kernel']} at {shape}: {r['bytes']} bytes, bound "
+              f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})")
     for T, S, B in SHAPES:
         for name, nbytes in kernel_bytes(T, S, B).items():
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3

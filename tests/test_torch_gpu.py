@@ -41,24 +41,35 @@ def _need_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("io", ["float32", "bfloat16"])
 @pytest.mark.parametrize("recip,skip_dead", [(True, False), (False, True)])
-@pytest.mark.parametrize("S", [31, 64, 256, 300, 1000])
-def test_cuda_kernel_matches_plain_twin(io, recip, skip_dead, S):
+@pytest.mark.parametrize("B,T", [(5, 130), (37, 3), (3, 1), (3, 2), (7, 63),
+                                 (9, 65), (5, 127), (6, 129)])
+@pytest.mark.parametrize("S", [1, 2, 8, 9, 31, 33, 64, 256, 300, 1000])
+def test_cuda_kernel_matches_plain_twin(io, recip, skip_dead, B, T, S):
     """ahat / normalized bhat at the gamma bar, cfw at the log_px bar; the
-    launch counter counts the kernel launch. S covers one warp per chain
-    with one and several speakers per thread (31, 64, 256) and the
-    several-warp chains past 256 (300, 1000)."""
+    launch counter counts the kernel launch. S covers every group shape of
+    the one-warp form (1 to 32 threads a lane, 4 or 8 speakers a thread,
+    full and ragged) and the several-warp chains past 256 (300, 1000); B
+    and T cover batches that do not fill a warp, walks of 1-3 frames and
+    walks one frame under and over a staged chunk (S=31: 64 frames in
+    float32, 128 in bfloat16), and with odd T and S lanes that start at odd
+    byte offsets. With skip_dead lane 0 starts with dead frames and the
+    last lane is all dead; without it two frames of lane 1 are scaled by
+    1e-38, so that their sums lie under the 1e-37 floor."""
     _need_card()
     gtol, ltol = BARS[io]
     gen = torch.Generator(device="cuda").manual_seed(S)
-    B, T = 5, 130
     w = torch.rand((B, T, S), generator=gen, device="cuda")
     if skip_dead:
         w[:, 40:43] = 0.0
+        w[0, :min(3, T - 1)] = 0.0
+        w[B - 1] = 0.0
+    elif T > 7:
+        w[1, 5:7] *= 1e-38
     w = w.to(getattr(torch, io))
     pi = torch.rand((B, S), generator=gen, device="cuda")
     pi /= pi.sum(-1, keepdim=True)
     col, pinit = 0.1 * pi + 1e-8, pi + 1e-8
-    binit = torch.rand((B, S), generator=gen, device="cuda")
+    binit = torch.rand((B, S), generator=gen, device="cuda") + 0.05
     before = fb_kernel.fb_fused_sb.launches
     k = fb_kernel.fb_fused_sb(w, col, pinit, binit, 0.9, recip, skip_dead)
     assert fb_kernel.fb_fused_sb.launches == before + 1
@@ -71,6 +82,42 @@ def test_cuda_kernel_matches_plain_twin(io, recip, skip_dead, S):
                                pb / pb.sum(-1, keepdim=True),
                                atol=gtol, rtol=0)
     torch.testing.assert_close(k[2], p[2], rtol=ltol, atol=0)
+    if skip_dead:
+        assert torch.all(k[2][w.float().sum(-1) == 0] == 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("io", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [2, 8, 31, 33, 300])
+def test_cuda_kernel_lane_does_not_depend_on_its_batch(io, S):
+    """A lane of a batch of 70 is bit-equal to the same lane launched alone
+    and at another place among other neighbours: the group of threads that
+    holds a lane depends on S only, and sums never cross lanes."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(S)
+    B, T = 70, 97
+    w = torch.rand((B, T, S), generator=gen, device="cuda")
+    w[3, 10:14] = 0.0
+    w = w.to(getattr(torch, io))
+    pi = torch.rand((B, S), generator=gen, device="cuda")
+    pi /= pi.sum(-1, keepdim=True)
+    col, pinit = 0.1 * pi + 1e-8, pi + 1e-8
+    binit = torch.rand((B, S), generator=gen, device="cuda") + 0.05
+
+    def run(idx):
+        return fb_kernel.fb_fused_sb(
+            w[idx].contiguous(), col[idx].contiguous(),
+            pinit[idx].contiguous(), binit[idx].contiguous(), 0.9, True,
+            True)
+
+    full = run(slice(None))
+    for i in (0, 3, 33, B - 1):
+        alone = run(slice(i, i + 1))
+        among = run(torch.tensor([(i + 9) % B, 60, i, 2], device="cuda"))
+        torch.cuda.synchronize()
+        for f, a, m in zip(full, alone, among):
+            assert torch.equal(f[i], a[0])
+            assert torch.equal(f[i], m[2])
 
 
 @pytest.mark.gpu
@@ -107,19 +154,25 @@ def test_cuda_kernel_route_matches_cpu_route():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("io", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [8, 31, 33, 64, 100, 128])
-def test_k2_cuda_kernel_matches_plain_twin(io, S):
+@pytest.mark.parametrize("B,Tb,R", [(3, 256, 4), (2, 96, 4), (2, 300, 3),
+                                    (1, 5, 1)])
+@pytest.mark.parametrize("S", [1, 2, 8, 9, 31, 33, 64, 100, 128])
+def test_k2_cuda_kernel_matches_plain_twin(io, S, B, Tb, R):
     """K2 against its twin, fhat relative to each row's max and ls relative
-    to max(1, |ls|). S covers one speaker per thread in groups of 8 and 32
-    lanes and 2-4 speakers per thread; lane 1's padding suffix leaves a
-    partly dead segment and one wholly dead segment (skipped exactly)."""
+    to max(1, |ls|). S covers every group shape (1 to 32 threads a row,
+    full and ragged); the last lane's padding suffix leaves a partly dead
+    segment and a wholly dead last segment (skipped exactly); Tb and R
+    give segments of several staged chunks, of less than one, and of no
+    whole number of them (S=8: 64 frames a chunk). Then a lane's rows must
+    not depend on the lanes it is launched with."""
     _need_card()
     bar = K2_CARD_BAR
     gen = torch.Generator(device="cuda").manual_seed(S)
-    B, Tb, R = 3, 256, 4
+    Ts = Tb // R
     w = torch.rand((B, Tb, S), generator=gen, device="cuda")
-    w[1, 150:] = 0.0
-    w[2, :, -1] = 0.0
+    w[B - 1, Tb - Ts // 3 - (Ts if R > 1 else 0):] = 0.0
+    if S > 1 and B > 1:
+        w[0, :, -1] = 0.0
     w = w.to(getattr(torch, io))
     pi = torch.rand((B, S), generator=gen, device="cuda")
     col = 0.1 * pi / pi.sum(-1, keepdim=True) + 1e-8
@@ -131,11 +184,20 @@ def test_k2_cuda_kernel_matches_plain_twin(io, S):
     assert k2.fb_fwd_product_sb.launches == before + 1
     fp, lpl = k2.fb_fwd_product_sb_plain(w, col, finit, 0.9)
     torch.cuda.synchronize()
-    rowmax = fp.abs().amax(-1, keepdim=True)
+    rowmax = fp.abs().amax(-1, keepdim=True).clamp(min=1e-37)
     assert float(((fk - fp).abs() / rowmax).max()) <= bar
     assert float(((lk - lpl).abs() / lpl.abs().clamp(min=1.0)).max()) <= bar
-    assert torch.equal(fk[3, 1], finit[3, 1])
-    assert torch.all(lk[3, 1] == 0)
+    if R > 1:
+        assert torch.equal(fk[R - 1, B - 1], finit[R - 1, B - 1])
+        assert torch.all(lk[R - 1, B - 1] == 0)
+    back = torch.arange(B - 1, -1, -1, device="cuda")
+    fr, lr = k2.fb_fwd_product_sb(w[back].contiguous(), col[back].contiguous(),
+                                  finit[:, back].contiguous(), 0.9)
+    fa, la = k2.fb_fwd_product_sb(w[:1], col[:1], finit[:, :1].contiguous(),
+                                  0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(fr[:, back], fk) and torch.equal(lr[:, back], lk)
+    assert torch.equal(fa[:, 0], fk[:, 0]) and torch.equal(la[:, 0], lk[:, 0])
 
 
 def _sharded_problem(S, B=4, T=128, D=16, seed=3):

@@ -55,7 +55,8 @@ def _imports(path):
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
     + ["chip_smoke.py", "scripts/torch_ab_fb_kernels.py",
-       "scripts/torch_profile.py"]))
+       "scripts/torch_profile.py", "scripts/torch_fb_scan_tuning.py",
+       "scripts/torch_fb_fused_tuning.py", "scripts/kernel_bounds.py"]))
 def test_no_jax_or_vbx_tpu_import_in_source(rel):
     for name in _imports(os.path.join(ROOT, rel)):
         top = name.split(".")[0]

@@ -2,7 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled with nvcc
 into `build/vbx_tpu_torch/lib<name>.so` beside the package (a git-ignored
-directory), then loaded with ctypes. No PyTorch headers are involved, so a
+directory), then loaded with ctypes. The sources may include the headers
+(`csrc/*.cuh`) they share; a library is rebuilt when its source or any
+header is newer than it. No PyTorch headers are involved, so a
 build takes seconds. Sources are built at first use, or all together (one
 nvcc process per source, started at once) through `build()`. Nothing here
 runs at import time: the CPU tests import every module of the port on
@@ -24,8 +26,12 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "vbx_tpu_torch")
 # sm_90a: Hopper with its architecture-specific features. No
 # --use_fast_math: it flushes denormals and approximates division, and the
 # kernels' 1e-37 normalizer floor sits just above float32's normal range.
+# --split-compile=0: a source's kernel instances are optimized on all the
+# host's cores at once (a source instantiates its kernel for every group
+# shape and stream type).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -53,10 +59,16 @@ def _nvcc() -> str:
                        "built on this machine")
 
 
+def headers() -> list:
+    """Paths of the headers the sources share (csrc/*.cuh)."""
+    return [os.path.join(CSRC_DIR, f) for f in sorted(os.listdir(CSRC_DIR))
+            if f.endswith(".cuh")]
+
+
 def _stale(name: str, src: str) -> bool:
     so = library_path(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(
-        src)
+    return not os.path.exists(so) or os.path.getmtime(so) < max(
+        os.path.getmtime(p) for p in [src, *headers()])
 
 
 def build(names: Optional[Iterable[str]] = None,
@@ -77,7 +89,7 @@ def build(names: Optional[Iterable[str]] = None,
         for n in todo:
             tmp = f"{library_path(n)}.{os.getpid()}.tmp"
             procs[n] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, srcs[n]],
+                [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, srcs[n]],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         reports, failed = {}, {}
         for n, (tmp, proc) in procs.items():

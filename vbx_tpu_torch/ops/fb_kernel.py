@@ -24,7 +24,9 @@ native layout of the E-step product. The speaker axis is not padded: the
 TPU kernel padded S to 8/16 sublanes and B to 128 lanes for its tiles.
 The TPU kernel held at most 256 speakers; this one holds S_MAX = 4096
 (S > 256 spreads each chain over ceil(S / 256) warps), so the engine's
-kernel route never has to leave the kernel on a card.
+kernel route never has to leave the kernel on a card. Up to 256 speakers
+a lane is a group of 1-32 threads sized from S alone, several lanes to a
+warp; a lane's result does not depend on the batch it is launched in.
 
 `fb_fused_sb` launches the CUDA kernel for CUDA tensors and runs
 `fb_fused_sb_plain` only for CPU tensors; any other device raises. There is
@@ -120,9 +122,13 @@ def fb_fused_sb_plain(w: torch.Tensor, col: torch.Tensor, pinit: torch.Tensor,
                       recip: bool = False, skip_dead: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel's walk, frame by frame in
-    float32, with the same flags, layout and rounding points (carries stay
-    float32; only the stored messages take w's dtype). Used for CPU tensors
-    and as the kernel's reference on the card."""
+    float32 as the TPU kernel steps, with the same flags and layout
+    (carries stay float32; only the stored messages take w's dtype). The
+    CUDA kernel sums a frame in another order (groups of threads, and the
+    backward normalizer as lp * sum(u) + S * sum(col * u)) and takes an
+    approximate reciprocal, so the two agree to the last few bits, not bit
+    for bit. Used for CPU tensors and as the kernel's reference on the
+    card."""
     B, T, S = w.shape
     f32 = torch.float32
     lp = torch.tensor(float(loop_prob), dtype=f32, device=w.device)

@@ -120,8 +120,11 @@ def fb_fwd_product_sb_plain(w: torch.Tensor, col: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel's walk: all R * B * S lanes
     advance together, frame by frame in float32, with the kernel's skip
-    rule and rounding points. Used for CPU tensors and as the kernel's
-    reference on the card."""
+    rule. The CUDA kernel sums a frame in another order, takes an
+    approximate reciprocal and builds ls from the exponents and the
+    mantissa products of the c's instead of one log per frame, so the two
+    agree to a few 1e-7, not bit for bit. Used for CPU tensors and as the
+    kernel's reference on the card."""
     B, Tb, S = w.shape
     R = finit.shape[0]
     f32 = torch.float32
