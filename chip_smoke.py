@@ -27,8 +27,16 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    one lane; S=31; S=128; a segment shorter than one staged chunk and one
    that is no multiple of it), with the tolerance of
    tests/test_torch_gpu.py, and its rows bit-equal whatever lanes share
-   the launch. CUDA-event times (median of 25 launches), the twin's time,
-   and the bytes/operations bound;
+   the launch. K3-K5 (fb_scan_tbs, the [T, B, S] walks) at SCAN_SHAPES
+   (the A/B tool's shape T=1025, B=256, S=31, tests/test_pallas.py's
+   shapes, every group shape of K3 and K5 with batches that do not fill a
+   warp, walks of 1-3 frames and one frame under and over a staged chunk,
+   frames under the 1e-37 floor) within SCAN_BARS, the API's fused route
+   against its two-pass route, K3 against K1 on the same inputs
+   transposed, and K3 and K5 lanes of the A/B launch bit-equal to the same
+   lanes launched alone and among other neighbours. CUDA-event times
+   (median of 25 launches), the twin's time, and the bytes/operations
+   bound;
 4. main path: a synthetic corpus of 64 recordings (T 500-2000 x-vectors,
    256-d, 2-6 speakers, vbx_tpu_torch.testing) through
    engine.pipeline.diarize_ark on cuda, once with fb_impl='pallas' and
@@ -537,21 +545,42 @@ def k2_phase(io_name: str) -> dict:
             "shape": main["shape"]}
 
 
-# K3-K5 shapes: (name, T, B, S, valid frames of lane B-1 or None). The A/B
-# tool's shape; tests/test_pallas.py's (40, 5, 3), (600, 31, 4) and its
-# padded case T=100+30, S=6, B=1; 2 and 4 speakers per thread; a batch
-# that is no multiple of the 4 lanes per block.
-SCAN_SHAPES = (("ab", 1025, 256, 31, 820), ("t40", 40, 3, 5, None),
-               ("t600", 600, 4, 31, 480), ("padded", 130, 1, 6, 100),
-               ("S64", 200, 6, 64, 150), ("S128", 200, 8, 128, 150),
-               ("B37", 300, 37, 31, 200))
+# K3-K5 shapes: (name, T, B, S, valid frames of lane B-1 or None, floor).
+# The A/B tool's shape; tests/test_pallas.py's (40, 5, 3), (600, 31, 4) and
+# its padded case T=100+30, S=6, B=1; K4's 2 and 4 speakers per thread; a
+# batch that is no multiple of K4's 4 lanes per block. Then what K3's and
+# K5's design can get wrong: walks of 1-3 frames; walks one frame under and
+# over one staged chunk (S=31: 16 rows); S=1 and 3 (32 lanes a warp) and 9
+# (8 lanes a warp), with rows of B * S * 4 bytes that are no multiple of 16
+# (B=37, 9, 11: the rows of consecutive frames start at other offsets from
+# a 16-byte boundary); a batch of 5 lanes, which does not fill a warp of
+# 32; and (floor) two frames of lane 0 scaled by 1e-38, so that their sums
+# lie under the 1e-37 floor.
+SCAN_SHAPES = (("ab", 1025, 256, 31, 820, False),
+               ("t40", 40, 3, 5, None, False),
+               ("t600", 600, 4, 31, 480, False),
+               ("padded", 130, 1, 6, 100, False),
+               ("S64", 200, 6, 64, 150, False),
+               ("S128", 200, 8, 128, 150, False),
+               ("B37", 300, 37, 31, 200, False),
+               ("T1", 1, 5, 31, None, False),
+               ("T2", 2, 5, 31, None, False),
+               ("T3", 3, 3, 8, None, False),
+               ("chunk_minus_1", 15, 5, 31, None, False),
+               ("chunk_plus_1", 17, 5, 31, 12, False),
+               ("S1", 130, 37, 1, 100, False),
+               ("S3", 47, 9, 3, 30, False),
+               ("S9", 33, 11, 9, 20, False),
+               ("B5", 300, 5, 2, 200, False),
+               ("floor", 200, 4, 8, 150, True))
 
 
-def scan_case(T, B, S, n_valid, seed):
+def scan_case(T, B, S, n_valid, seed, floor=False):
     """[T, B, S] emission weights (max 1 per frame) on the card, lane 0's
     last two speakers absent (w and prior exactly 0), the last lane ending
-    in a padded suffix after n_valid frames, and the validity-filled copy
-    fb_scan hands its kernels."""
+    in a padded suffix after n_valid frames, with floor two frames of lane
+    0 scaled by 1e-38, and the validity-filled copy fb_scan hands its
+    kernels."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -562,6 +591,8 @@ def scan_case(T, B, S, n_valid, seed):
     if S > 2:
         w[:, 0, -2:] = 0.0
         pi[0, -2:] = 0.0
+    if floor:
+        w[T // 3:T // 3 + 2, 0] *= 1e-38
     pi /= pi.sum(-1, keepdim=True)
     valid = torch.ones((T, B), device="cuda")
     if n_valid is not None:
@@ -589,8 +620,8 @@ def scan_phase() -> list:
 
     checks = {"fb_scan_fused": {}, "fb_scan_fwd": {}, "fb_scan_bwd": {}}
     cross = {}
-    for i, (name, T, B, S, n_valid) in enumerate(SCAN_SHAPES):
-        c = scan_case(T, B, S, n_valid, seed=200 + i)
+    for i, (name, T, B, S, n_valid, floor) in enumerate(SCAN_SHAPES):
+        c = scan_case(T, B, S, n_valid, seed=200 + i, floor=floor)
         wf, col, pinit, lp = c["wf"], c["col"], c["pinit"], c["lp"]
         ok = c["valid"].bool()
         a3, b3 = fbs.fb_scan_fused(wf, col, pinit, lp)
@@ -651,28 +682,22 @@ def scan_phase() -> list:
             ab = c
     wf, col, pinit, lp = ab["wf"], ab["col"], ab["pinit"], ab["lp"]
     T, B, S = wf.shape
-    tbs, bs, tb = T * B * S * 4, B * S * 4, T * B * 4
 
     def both_passes():
         fbs.fb_scan_fwd(wf, col, pinit, lp)
         fbs.fb_scan_bwd(wf, col, lp)
 
-    # bytes each function must move (float32): w, col (and pinit) in; ahat
-    # / bhat (and cfw) out; ~12 operations per (frame, lane, speaker) for
-    # the two chains, ~6 for one
-    rows = (("fb_scan_fused", ":150", 3 * tbs + 2 * bs, 12,
+    rows = (("fb_scan_fused", ":150",
              lambda: fbs.fb_scan_fused(wf, col, pinit, lp),
              lambda: fbs.fb_scan_fused_plain(wf, col, pinit, lp)),
-            ("fb_scan_fwd", ":92", 2 * tbs + 2 * bs + tb, 6,
+            ("fb_scan_fwd", ":92",
              lambda: fbs.fb_scan_fwd(wf, col, pinit, lp),
              lambda: fbs.fb_scan_fwd_plain(wf, col, pinit, lp)),
-            ("fb_scan_bwd", ":121", 2 * tbs + bs, 6,
+            ("fb_scan_bwd", ":121",
              lambda: fbs.fb_scan_bwd(wf, col, lp),
              lambda: fbs.fb_scan_bwd_plain(wf, col, lp)))
     out = []
-    for kname, line, nbytes, ops, kernel, plain in rows:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops * T * B * S / F32_OPS_PER_S * 1e3
+    for kname, line, kernel, plain in rows:
         out.append({
             "name": kname, "route": "cuda",
             "source": "vbx_tpu_torch/csrc/fb_scan_tbs.cu",
@@ -680,14 +705,64 @@ def scan_phase() -> list:
             "max_abs_err": max(v for c in checks[kname].values()
                                for n, v in c.items() if n != "shape"),
             "ms": _cuda_ms(kernel), "plain_ms": _host_ms(plain),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **scan_bound(T, B, S, kname),
             # no single PyTorch call computes these recursions
             "library_ms": None,
-            "checks": checks[kname], "bytes": nbytes, "shape": [T, B, S]})
+            "checks": checks[kname], "shape": [T, B, S]})
     out[0]["cross"] = cross
     out[0]["two_pass_ms"] = _cuda_ms(both_passes)
+    out[0]["batch_invariance"] = scan_batch_invariance(ab)
     return out
+
+
+def scan_bound(T, B, S, kernel) -> dict:
+    """The least time the card could take for one call of K3
+    (fb_scan_fused), K4 (fb_scan_fwd) or K5 (fb_scan_bwd) on float32 [T, B,
+    S] weights: w and col (and pinit) read once, ahat / bhat (and cfw [T,
+    B]) written once; ~12 float32 operations per (frame, lane, speaker) for
+    the two chains, ~6 for one. scripts/kernel_bounds.py computes the same
+    from the shapes alone."""
+    tbs, bs, tb = T * B * S * 4, B * S * 4, T * B * 4
+    nbytes, ops = {"fb_scan_fused": (3 * tbs + 2 * bs, 12),
+                   "fb_scan_fwd": (2 * tbs + 2 * bs + tb, 6),
+                   "fb_scan_bwd": (2 * tbs + bs, 6)}[kernel]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops * T * B * S / F32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def scan_batch_invariance(case) -> dict:
+    """K3 and K5: lanes of one launch against the same lanes launched alone
+    and among other neighbours (at another place in the batch); every
+    output must be bit-equal, because the group that holds a lane depends
+    on S only and a warp's lanes never exchange values."""
+    import torch
+
+    from vbx_tpu_torch.ops import fb_scan_kernel as fbs
+
+    wf, col, pinit, lp = case["wf"], case["col"], case["pinit"], case["lp"]
+    B = wf.shape[1]
+
+    def run(idx):
+        w, c = wf[:, idx].contiguous(), col[idx].contiguous()
+        return (*fbs.fb_scan_fused(w, c, pinit[idx].contiguous(), lp),
+                fbs.fb_scan_bwd(w, c, lp))
+
+    full = run(slice(None))
+    lanes = sorted({0, 1, B // 2 + 2, B - 1})
+    for i in lanes:
+        alone = run(slice(i, i + 1))
+        among = run(torch.tensor([(7 * i + 3) % B, i, (i + 101) % B, 5 % B,
+                                  (B - 6) % B], device="cuda"))
+        torch.cuda.synchronize()
+        for name, f, a, m in zip(("fb_scan_fused ahat", "fb_scan_fused bhat",
+                                  "fb_scan_bwd bhat"), full, alone, among):
+            if not (torch.equal(f[:, i], a[:, 0])
+                    and torch.equal(f[:, i], m[:, 1])):
+                fail(f"{name} of lane {i} in a batch of {B} differs from the "
+                     f"lane launched alone or among other neighbours")
+    return {"lanes": lanes, "batch": B, "bit_equal": True}
 
 
 def wide_ms() -> dict:
@@ -1279,6 +1354,10 @@ def main() -> int:
               f"T,B,S={k['shape']}")
     for name, c in scan[0]["cross"].items():
         print(f"fb_scan cross-checks at {name}: {json.dumps(c)}")
+    inv = scan[0]["batch_invariance"]
+    print(f"fb_scan_fused and fb_scan_bwd: lanes {inv['lanes']} of the batch "
+          f"of {inv['batch']} bit-equal to the same lanes launched alone and "
+          f"among other neighbours")
     print(f"fb_scan_fwd then fb_scan_bwd: {scan[0]['two_pass_ms']:.4f} ms "
           f"(median of 25), {scan[0]['two_pass_ms'] / scan[0]['ms']:.2f}x "
           f"fb_scan_fused")

@@ -25,26 +25,30 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 SHAPES = ((40, 5, 3), (600, 31, 4), (1025, 31, 256))
 
 
-def kernel_bytes(T: int, S: int, B: int) -> dict:
-    """Bytes each kernel's function must move: w [T, B, S], col and pinit
-    [B, S] in; ahat / bhat [T, B, S] and cfw [T, B] out, as each returns
-    them (the TPU forms pad S to 128 lanes and broadcast cfw over them;
-    that padding is not work the function needs)."""
+# K3-K5 by the name of their wrappers (vbx_tpu_torch.ops.fb_scan_kernel)
+SCAN_KERNELS = {"fb_scan_fused": "K3 _fused_kernel",
+                "fb_scan_fwd": "K4 _fwd_kernel",
+                "fb_scan_bwd": "K5 _bwd_kernel"}
+
+
+def scan_bound(T: int, B: int, S: int, kernel: str) -> dict:
+    """K3-K5 on float32 [T, B, S] weights: the bytes each function must
+    move (w, col and pinit [B, S] in; ahat / bhat [T, B, S] and cfw [T, B]
+    out, as each returns them: the TPU forms pad S to 128 lanes and
+    broadcast cfw over them, padding that is not work the function needs),
+    and ~12 float32 operations per (frame, lane, speaker) for the fused
+    walk's two chains, ~6 for one chain."""
     tbs, bs, tb = T * B * S * 4, B * S * 4, T * B * 4
-    return {
+    nbytes, ops = {
         # K3 _fused_kernel: w, col, pinit in; ahat, bhat out
-        "K3 _fused_kernel": 3 * tbs + 2 * bs,
+        "fb_scan_fused": (3 * tbs + 2 * bs, 12),
         # K4 _fwd_kernel: w, col, pinit in; ahat, cfw out
-        "K4 _fwd_kernel": 2 * tbs + 2 * bs + tb,
+        "fb_scan_fwd": (2 * tbs + 2 * bs + tb, 6),
         # K5 _bwd_kernel: w (one-frame-shifted), col in; bhat out
-        "K5 _bwd_kernel": 2 * tbs + bs,
-    }
+        "fb_scan_bwd": (2 * tbs + bs, 6)}[kernel]
+    return _bound(nbytes, ops * T * B * S)
 
 
-# float32 operations per (frame, lane, speaker): the fused walk's two
-# chains as K1's (~12), one chain for each two-pass kernel (~6)
-OPS_PER_ELEMENT = {"K3 _fused_kernel": 12, "K4 _fwd_kernel": 6,
-                   "K5 _bwd_kernel": 6}
 # K1 (B, T, S): the bench shape and the solo long recording
 K1_SHAPES = ((256, 1025, 31), (4, 32768, 8))
 # K2 (B, Tb, S, R): chip_smoke.py's K2_SHAPES
@@ -92,16 +96,12 @@ def main() -> int:
         print(f"{r['kernel']} at {shape}: {r['bytes']} bytes, bound "
               f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})")
     for T, S, B in SHAPES:
-        for name, nbytes in kernel_bytes(T, S, B).items():
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = OPS_PER_ELEMENT[name] * T * B * S / F32_OPS_PER_S * 1e3
-            rows.append({"kernel": name, "T,S,B": [T, S, B], "bytes": nbytes,
-                         "bound_ms": max(t_bytes, t_ops),
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations"})
-            print(f"{name} at T,S,B={T},{S},{B}: {nbytes} bytes, bound "
-                  f"{max(t_bytes, t_ops) * 1e3:.4f} us "
-                  f"({rows[-1]['bound_by']})")
+        for kernel, name in SCAN_KERNELS.items():
+            rows.append({"kernel": name, "T,S,B": [T, S, B],
+                         **scan_bound(T, B, S, kernel)})
+            r = rows[-1]
+            print(f"{name} at T,S,B={T},{S},{B}: {r['bytes']} bytes, bound "
+                  f"{r['bound_ms'] * 1e3:.4f} us ({r['bound_by']})")
     print(json.dumps(rows))
     return 0
 

@@ -1,28 +1,34 @@
 #!/usr/bin/env python3
-"""Time variants of the [T, B, S] forward-backward kernels
-(vbx_tpu_torch/csrc/fb_scan_tbs.cu) on one CUDA card: other numbers of
-recording lanes per block and of frames kept in flight per chain, the
-walks with their stores left out, with the approximate division
-`__fdividef` in place of the IEEE one, and with no loads of w inside the
-loop.
+"""Time variants of the [T, B, S] walks on one CUDA card
+(vbx_tpu_torch/csrc/fb_scan_tbs.cu): K3, the fused walk, and K5, the
+backward walk, in their grouped-lane design, and K4, the forward walk, in
+the first design of that file.
 
-    python3 scripts/torch_fb_scan_tuning.py [B] [T] [S]
+    python3 scripts/torch_fb_scan_tuning.py [summary.json]
 
-Defaults B=256, T=1025, S=31 (the kernel A/B tool's shape). Each variant is
-the shipped source with its two constants (kLanesPerBlock, kAhead)
-replaced by text substitution, for the "nost" rows with the per-frame
-stores of ahat / bhat / cfw compiled out (only the last frame's carry is
-stored, so the walk itself cannot be optimized away), for the "fdiv" rows
-with both normalizing divisions approximate, and for the "nold" rows with
-the in-loop loads of w removed (every step reuses the first frames: the
-dependent arithmetic alone). All variants are
-compiled first (one nvcc each, started together), then timed in turns: the
-median of 25 launches by CUDA events, three rounds. It prints the card's
-name and power limit first, and at the end the SM clock nvidia-smi reads
-while the shipped fused kernel runs back to back, so that a time per step
-can be read as cycles. A measurement tool: nothing in the package uses
-these variants (the approximate division would break the 1e-37 floor), and
-only the shipped source is held to the twins (chip_smoke.py,
+Each variant is the shipped source, or the header it shares with K1 and K2
+(csrc/fb_step.cuh), with a few lines replaced by text substitution
+(K3_VARIANTS, K5_VARIANTS, K4_VARIANTS below). K3 and K5: no unrolling;
+the IEEE reciprocal in place of the approximate one, or the approximate one
+without its rare branch; the row copies removed after the ring's first
+chunks (later chunks read what their buffer already holds); the per-frame
+stores removed (only the last frame is stored, so the walk cannot be
+optimized away); K3's forward chains alone and backward chains alone; 1 or
+2 speakers per thread instead of 4; 2 or 4 KB chunks instead of 8; two
+ring stages instead of three; only the first row of each chunk copied,
+one thread issuing all of a chunk's row copies, or one arrival on the
+chunk's mbarrier in place of one a row. K4: 1 or 8 lanes a block, 1 or 8 frames in
+flight, no per-frame stores, `__fdividef` in place of the IEEE division,
+no in-loop loads, and their combinations. Together they say what a step of
+each walk is made of. Variants are compiled first (one nvcc each for each
+distinct source, started together), then timed in turns, three rounds, by
+CUDA events (median of 25 launches), at the kernel A/B tool's shape
+(SHAPE: T=1025, B=256, S=31). It prints the card's name and power limit
+first and, last, the SM clock nvidia-smi reads while the shipped K3 runs
+back to back, so that a time per step reads as cycles; the JSON summary
+(its last line) is also written to the file named as the argument, if any.
+A measurement tool: nothing in the package uses these variants, and only
+the shipped source is held to the plain twins (chip_smoke.py,
 tests/test_torch_gpu.py).
 """
 
@@ -36,56 +42,179 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
-# (lanes per block, frames in flight, stores, IEEE division, loads)
-VARIANTS = ((4, 4, True, True, True), (1, 4, True, True, True),
-            (8, 4, True, True, True), (4, 1, True, True, True),
-            (4, 8, True, True, True), (4, 4, False, True, True),
-            (4, 4, True, False, True), (4, 4, False, False, True),
-            (4, 4, True, True, False), (4, 4, False, True, False),
-            (4, 4, False, False, False))
+from torch_fb_fused_tuning import (  # noqa: E402
+    _IEEE_RCP, _NO_RARE_BRANCH, _NO_UNROLL, _per_thread, _ring,
+    build_variants, cuda_ms, variant_source)
+
+SHAPE = (1025, 256, 31)     # T, B, S
+
+# A variant is (substitutions in fb_scan_tbs.cu, substitutions in
+# fb_step.cuh), each a tuple of (old text, new text) that must be found.
+# only the ring's first kStages chunks are ever copied (RowStager)
+_NO_LOADS = (("{ return n_chunks > q; }",
+              "{ return n_chunks > q && q < kStages; }"),)
+_NO_STORES = (
+    ("      write_frame<float, G, P>(ap, l.g, l.s_store, carry);",
+     "      write_frame<float, G, P>(ap, l.g, t == st.n_frames - 1 ? "
+     "l.s_store : 0, carry);"),
+    ("      write_frame<float, G, P>(bp, l.g, l.s_store, carry);",
+     "      write_frame<float, G, P>(bp, l.g, f == 1 ? l.s_store : 0, "
+     "carry);"))
+_FWD_ONLY = (("  else\n    backward_rows", "  else if (T < 0)\n    "
+              "backward_rows"),)
+_BWD_ONLY = (("  if (forward)\n    forward_rows",
+              "  if (forward && T < 0)\n    forward_rows"),
+             ("  else\n    backward_rows", "  else if (!forward)\n    "
+              "backward_rows"))
+# how the rows' bulk copies cost: only the first row of each chunk copied
+# (the others arrive with no copy); one thread issuing all of a chunk's
+# rows; one arrival with the chunk's total bytes (a warp sum) in place of
+# one arrival per row (timing only: it leaves out the single elements at
+# the tensor's ends, which the A/B shape does not have)
+_ROW_LOOP = """\
+    for (int r = lane; r < (1 << log_f); r += 32) {
+      if (r < n) {
+        const uintptr_t s = row_start(t0 + r);
+        // 16-byte aligned: stride = frame_stride (mod 16)
+        stage_bytes<IO>(lo, hi, s, s + row_bytes,
+                        slot + r * stride - (s & 15), mbar, 0, 1);
+      } else {
+        bulk_copy(slot, 0, 0u, mbar);  // no such row: arrive alone
+      }
+    }
+"""
+_RUN = """\
+      const uintptr_t s = row_start(t0 + r);
+      const uintptr_t r0 = s & ~static_cast<uintptr_t>(15);
+      const uintptr_t r1 = (s + row_bytes + 15) & ~static_cast<uintptr_t>(15);
+      const uintptr_t v0 = r0 < lo ? r0 + 16 : r0;
+      const uintptr_t v1 = r1 > hi ? r1 - 16 : r1;
+"""
+_ONE_ARRIVAL_LOOP = f"""\
+    const unsigned bar = smem_address(mbar);
+    unsigned bytes = 0;
+    for (int r = lane; r < n; r += 32) {{
+{_RUN}      bytes += v1 > v0 ? static_cast<unsigned>(v1 - v0) : 0u;
+    }}
+    for (int o = 16; o > 0; o /= 2)
+      bytes += __shfl_xor_sync(0xffffffffu, bytes, o);
+    if (lane == 0)
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   ::"r"(bar), "r"(bytes) : "memory");
+    for (int r = lane; r < n; r += 32) {{
+{_RUN}      if (v1 > v0)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];"
+            ::"r"(smem_address(slot + r * stride - (s & 15) + (v0 - r0))),
+            "l"(v0), "r"(static_cast<unsigned>(v1 - v0)), "r"(bar)
+            : "memory");
+    }}
+"""
+_FIRST_ROW_ONLY = ((), ((_ROW_LOOP, _ROW_LOOP.replace(
+    "if (r < n) {", "if (r < n && r == 0) {")),))
+_ONE_THREAD_ISSUES = ((), ((_ROW_LOOP, _ROW_LOOP.replace(
+    "for (int r = lane; r < (1 << log_f); r += 32)",
+    "for (int r = 0; lane == 0 && r < (1 << log_f); ++r)")),))
+_ONE_ARRIVAL = ((), ((_ROW_LOOP, _ONE_ARRIVAL_LOOP),
+                     ("mbar_init_count(mbars + i, 1 << log_f);",
+                      "mbar_init_count(mbars + i, 1);")))
+# S=31 as groups of 32 and 16 threads
+_ONE_PER_THREAD = _per_thread(1, (32,), "FB_SCAN_GROUP")
+_TWO_PER_THREAD = _per_thread(2, (16,), "FB_SCAN_GROUP")
+
+K5_VARIANTS = {
+    "shipped": ((), ()),
+    "no_unroll": (_NO_UNROLL, ()),
+    "ieee_rcp": ((), _IEEE_RCP),
+    "no_rare_branch": ((), _NO_RARE_BRANCH),
+    "no_loads": ((), _NO_LOADS),
+    "no_stores": (_NO_STORES, ()),
+    "no_loads_no_stores": (_NO_STORES, _NO_LOADS),
+    "1_per_thread": _ONE_PER_THREAD,
+    "2_per_thread": _TWO_PER_THREAD,
+    "chunk_2k": _ring(3, 2048, 32),
+    "chunk_4k": _ring(3, 4096, 64),
+    "2_stages": _ring(2, 8192),
+    "first_row_only": _FIRST_ROW_ONLY,
+    "one_thread_issues": _ONE_THREAD_ISSUES,
+    "one_arrival": _ONE_ARRIVAL,
+}
+
+K3_VARIANTS = {
+    **K5_VARIANTS,
+    "fwd_only": (_FWD_ONLY, ()),
+    "bwd_only": (_BWD_ONLY, ()),
+    "fwd_only_no_loads_no_stores": (_FWD_ONLY + _NO_STORES, _NO_LOADS),
+    "bwd_only_no_loads_no_stores": (_BWD_ONLY + _NO_STORES, _NO_LOADS),
+}
 
 
-def variant_source(src: str, lanes: int, ahead: int, stores: bool,
-                   ieee_div: bool = True, loads: bool = True) -> str:
-    out = src.replace("constexpr int kLanesPerBlock = 4;",
-                      f"constexpr int kLanesPerBlock = {lanes};")
-    out = out.replace("constexpr int kAhead = 4;",
-                      f"constexpr int kAhead = {ahead};")
-    if out == src and (lanes, ahead) != (4, 4):
-        raise RuntimeError("the source's constants were not found")
-    if not stores:
-        # keep only the final frame's stores
-        out = out.replace("store_frame<KPT>(al + t * step, lane, S, carry);",
-                          "if (t == T - 1) store_frame<KPT>(al + t * step, "
-                          "lane, S, carry);")
-        out = out.replace(
-            "store_frame<KPT>(bl + (f - 1) * step, lane, S, carry);",
-            "if (f == 1) store_frame<KPT>(bl + (f - 1) * step, lane, S, "
-            "carry);")
-        out = out.replace("if (WITH_C && lane == 0)",
-                          "if (WITH_C && lane == 0 && t == T - 1)")
+def _k4(lanes=4, ahead=4, stores=True, ieee_div=True, loads=True):
+    """K4 (the first design: forward_chain) with lanes per block, frames in
+    flight, its stores, its IEEE division and its in-loop loads as given."""
+    subs = []
+    if lanes != 4:
+        subs.append(("constexpr int kLanesPerBlock = 4;",
+                     f"constexpr int kLanesPerBlock = {lanes};"))
+    if ahead != 4:
+        subs.append(("constexpr int kAhead = 4;",
+                     f"constexpr int kAhead = {ahead};"))
+    if not stores:    # keep only the final frame's stores
+        subs += [("store_frame<KPT>(al + t * step, lane, S, carry);",
+                  "if (t == T - 1) store_frame<KPT>(al + t * step, lane, S, "
+                  "carry);"),
+                 ("if (WITH_C && lane == 0)",
+                  "if (WITH_C && lane == 0 && t == T - 1)")]
     if not ieee_div:
-        out = out.replace("carry[k] = a[k] / c;",
-                          "carry[k] = __fdividef(a[k], c);")
-        out = out.replace("carry[k] = bb[k] / cb;",
-                          "carry[k] = __fdividef(bb[k], cb);")
+        subs.append(("carry[k] = a[k] / c;",
+                     "carry[k] = __fdividef(a[k], c);"))
     if not loads:
-        before = out
-        out = out.replace("t + kAhead < T ? S : 0", "0")
-        out = out.replace("f - kAhead >= 1 ? S : 0", "0")
-        if out == before:
-            raise RuntimeError("the source's in-loop copies were not found")
-    return out
+        subs.append(("t + kAhead < T ? S : 0", "0"))
+    return tuple(subs), ()
+
+
+K4_VARIANTS = {
+    "shipped": _k4(),
+    "lanes_1": _k4(lanes=1),
+    "lanes_8": _k4(lanes=8),
+    "ahead_1": _k4(ahead=1),
+    "ahead_8": _k4(ahead=8),
+    "no_stores": _k4(stores=False),
+    "fdiv": _k4(ieee_div=False),
+    "no_stores_fdiv": _k4(stores=False, ieee_div=False),
+    "no_loads": _k4(loads=False),
+    "no_loads_no_stores": _k4(stores=False, loads=False),
+    "no_loads_no_stores_fdiv": _k4(stores=False, ieee_div=False,
+                                   loads=False),
+}
+
+# kernel: (its variants, its C entry point)
+KERNELS = {"K3 fb_scan_fused": (K3_VARIANTS, "fb_scan_fused_launch"),
+           "K4 fb_scan_fwd": (K4_VARIANTS, "fb_scan_fwd_launch"),
+           "K5 fb_scan_bwd": (K5_VARIANTS, "fb_scan_bwd_launch")}
+
+
+def distinct_builds():
+    """{build tag: (substitutions)} with one build for each distinct pair of
+    substitution lists, and {(kernel, variant): build tag}."""
+    builds, which = {}, {}
+    by_subs = {}
+    for kernel, (variants, _) in KERNELS.items():
+        for tag, subs in variants.items():
+            key = repr(subs)
+            if key not in by_subs:
+                by_subs[key] = f"v{len(by_subs)}"
+                builds[by_subs[key]] = subs
+            which[(kernel, tag)] = by_subs[key]
+    return builds, which
 
 
 def main(argv=None) -> int:
     import torch
 
-    from vbx_tpu_torch.ops import cuda_build
-
-    argv = sys.argv[1:] if argv is None else argv
-    B, T, S = (int(a) for a in (list(argv) + [256, 1025, 31][len(argv):]))
     if not torch.cuda.is_available():
         print("no CUDA card: this tool only measures on a card",
               file=sys.stderr)
@@ -94,12 +223,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    print(f"card: {card}")
+    print(f"card: {card}", flush=True)
+    T, B, S = SHAPE
     print(f"T={T} B={B} S={S}", flush=True)
-    src = open(cuda_build.sources()["fb_scan_tbs"]).read()
-    nvcc = cuda_build._nvcc()
-    flags = [f for f in cuda_build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
     gen = torch.Generator(device="cuda").manual_seed(0)
     w = torch.rand((T, B, S), generator=gen, device="cuda")
     pi = torch.rand((B, S), generator=gen, device="cuda")
@@ -107,87 +235,73 @@ def main(argv=None) -> int:
     col, pinit = (0.1 * pi + 1e-8).contiguous(), (pi + 1e-8).contiguous()
     ahat, bhat = torch.empty_like(w), torch.empty_like(w)
     cfw = torch.empty((T, B), device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    ptr = ctypes.c_void_p
+    p = {n: x.data_ptr() for n, x in dict(
+        w=w, col=col, pinit=pinit, ahat=ahat, bhat=bhat, cfw=cfw).items()}
+    args = {"fb_scan_fused_launch": (p["w"], p["col"], p["pinit"], 0.9, T, B,
+                                     S, p["ahat"], p["bhat"], stream),
+            "fb_scan_fwd_launch": (p["w"], p["col"], p["pinit"], 0.9, T, B,
+                                   S, p["ahat"], p["cfw"], stream),
+            "fb_scan_bwd_launch": (p["w"], p["col"], 0.9, T, B, S, p["bhat"],
+                                   stream)}
+    n_in = {"fb_scan_fused_launch": 3, "fb_scan_fwd_launch": 3,
+            "fb_scan_bwd_launch": 2}
 
+    builds, which = distinct_builds()
     with tempfile.TemporaryDirectory() as work:
-        procs = []
-        for lanes, ahead, stores, ieee_div, loads in VARIANTS:
-            tag = (f"l{lanes}_a{ahead}_{'st' if stores else 'nost'}"
-                   f"{'' if ieee_div else '_fdiv'}{'' if loads else '_nold'}")
-            cu, so = (os.path.join(work, f"{tag}.{e}") for e in ("cu", "so"))
-            with open(cu, "w") as f:
-                f.write(variant_source(src, lanes, ahead, stores, ieee_div,
-                                       loads))
-            procs.append((tag, so, subprocess.Popen(
-                [nvcc, *flags, "-o", so, cu], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)))
-        calls = {}
-        for tag, so, proc in procs:
+        libs = {}
+        for tag, so, proc in build_variants(work, "fb_scan_tbs", builds):
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {tag}:\n{out}")
-            lib = ctypes.CDLL(so)
-            for fn, n_ptr in ((lib.fb_scan_fused_launch, 6),
-                              (lib.fb_scan_fwd_launch, 6),
-                              (lib.fb_scan_bwd_launch, 4)):
-                fn.restype = ctypes.c_int
-                n_in = n_ptr - 3 if n_ptr == 6 else 2
-                fn.argtypes = ([ptr] * n_in + [ctypes.c_float]
-                               + [ctypes.c_int] * 3
-                               + [ptr] * (n_ptr - n_in))
-            p = {n: x.data_ptr() for n, x in dict(
-                w=w, col=col, pinit=pinit, ahat=ahat, bhat=bhat,
-                cfw=cfw).items()}
-            calls[tag] = {
-                "fused": lambda lib=lib: lib.fb_scan_fused_launch(
-                    p["w"], p["col"], p["pinit"], 0.9, T, B, S, p["ahat"],
-                    p["bhat"], stream),
-                "fwd": lambda lib=lib: lib.fb_scan_fwd_launch(
-                    p["w"], p["col"], p["pinit"], 0.9, T, B, S, p["ahat"],
-                    p["cfw"], stream),
-                "bwd": lambda lib=lib: lib.fb_scan_bwd_launch(
-                    p["w"], p["col"], 0.9, T, B, S, p["bhat"], stream)}
-
-        def cuda_ms(fn, n=25):
-            for _ in range(3):
-                if fn() != 0:
-                    raise RuntimeError("launch failed")
-            times = []
-            for _ in range(n):
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                fn()
-                e.record()
-                e.synchronize()
-                times.append(s.elapsed_time(e))
-            return statistics.median(times)
-
-        rows = {tag: {k: [] for k in fns} for tag, fns in calls.items()}
+            libs[tag] = ctypes.CDLL(so)
+        calls = {}     # {kernel: {variant: launch}}
+        for (kernel, tag), build in which.items():
+            entry = KERNELS[kernel][1]
+            fn = getattr(libs[build], entry)
+            fn.restype = c_int
+            fn.argtypes = ([ptr] * n_in[entry] + [ctypes.c_float]
+                           + [c_int] * 3
+                           + [ptr] * (len(args[entry]) - n_in[entry] - 4))
+            calls.setdefault(kernel, {})[tag] = (
+                lambda fn=fn, a=args[entry]: fn(*a))
+        times = {k: {tag: [] for tag in v} for k, v in calls.items()}
         for _ in range(3):
-            for tag, fns in calls.items():
-                for kind, fn in fns.items():
-                    rows[tag][kind].append(cuda_ms(fn))
-        # the SM clock under this load: queue ~1 s of the shipped fused
-        # kernel and read the clock while it runs
-        for _ in range(2000):
-            calls["l4_a4_st"]["fused"]()
+            for k, v in calls.items():
+                for tag, fn in v.items():
+                    times[k][tag].append(cuda_ms(fn, 25))
+        # the SM clock under this load: queue ~1 s of the shipped K3 and
+        # read the clock while it runs
+        shipped = calls["K3 fb_scan_fused"]["shipped"]
+        for _ in range(3000):
+            shipped()
         clocks = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()[0]
         torch.cuda.synchronize()
-    print(f"SM clock while fb_scan_fused runs back to back, and its "
-          f"maximum: {clocks}")
-    for tag, r in rows.items():
-        print(f"{tag}: " + "  ".join(
-            f"{k} {statistics.median(v):.4f} ms" for k, v in r.items()),
-            flush=True)
-    print(json.dumps({"card": card, "sm_clocks": clocks,
-                      "shape": [T, B, S], "ms": {
-        tag: {k: statistics.median(v) for k, v in r.items()}
-        for tag, r in rows.items()}}))
+    print(f"SM clock while K3 runs back to back, and its maximum: {clocks}")
+    mhz = float(clocks.split()[0])
+    result = {}
+    for k, v in times.items():
+        print(k)
+        result[k] = {}
+        for tag, ts in v.items():
+            if None in ts:
+                result[k][tag] = None
+                print(f"  {tag}: launch refused")
+                continue
+            ms = statistics.median(ts)
+            result[k][tag] = ms
+            print(f"  {tag}: {ms:.4f} ms  ({ms * 1e3 * mhz / T:.0f} cycles a "
+                  f"step; rounds {' '.join(f'{t:.4f}' for t in ts)})",
+                  flush=True)
+    summary = json.dumps({"card": card, "sm_clocks": clocks,
+                          "shape": list(SHAPE), "ms": result})
+    print(summary)
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        with open(argv[0], "w") as f:
+            f.write(summary + "\n")
     return 0
 
 

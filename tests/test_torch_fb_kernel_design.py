@@ -483,8 +483,8 @@ def test_tuning_variants_still_address_the_shipped_sources(source, tag):
 @pytest.mark.parametrize("esize", [2, 4])
 def test_kernel_bounds_script_agrees_with_chip_smoke(esize):
     """scripts/kernel_bounds.py (from the shapes alone) and chip_smoke.py
-    (from its run's inputs) state the same K1 and K2 bounds; K1's at the
-    bench shape is its bytes over 3.35 TB/s."""
+    (from its run's inputs) state the same K1, K2 and K3-K5 bounds; K1's at
+    the bench shape is its bytes over 3.35 TB/s."""
     bounds = _load(os.path.join(ROOT, "scripts", "kernel_bounds.py"))
     smoke = _load(os.path.join(ROOT, "chip_smoke.py"))
     for shape in bounds.K1_SHAPES:
@@ -495,6 +495,15 @@ def test_kernel_bounds_script_agrees_with_chip_smoke(esize):
     assert bounds.K2_SHAPES == tuple(s[1:] for s in smoke.K2_SHAPES)
     for shape in bounds.K2_SHAPES:
         assert bounds.k2_bound(*shape, esize) == smoke.k2_bound(*shape, esize)
+    # K3-K5 (float32 walks: the same bounds for either esize case)
+    for T, S, B in bounds.SHAPES:
+        for kernel in bounds.SCAN_KERNELS:
+            assert bounds.scan_bound(T, B, S, kernel) == \
+                smoke.scan_bound(T, B, S, kernel)
+    assert (bounds.SHAPES[-1][0], bounds.SHAPES[-1][2],
+            bounds.SHAPES[-1][1]) == smoke.SCAN_SHAPES[0][1:4]
+    assert bounds.scan_bound(1025, 256, 31, "fb_scan_fused")["bytes"] == \
+        3 * 1025 * 256 * 31 * 4 + 2 * 256 * 31 * 4
     b = bounds.k1_bound(256, 1025, 31, esize)
     assert b["bound_by"] == "bytes"
     assert b["bytes"] == 3 * 256 * 1025 * 31 * esize + 256 * 1025 * 4 \

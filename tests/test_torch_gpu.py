@@ -248,9 +248,11 @@ def test_sharded_kernel_route_past_k2_cap_raises_on_a_card():
                     fb_impl="pallas")
 
 
-def _scan_case(T, B, S, seed):
+def _scan_case(T, B, S, seed, floor=False):
     """Emission weights (max 1 per frame) with lane 0's last speaker absent
-    and, where B > 1, lane 1 ending in a padded suffix (valid = 0)."""
+    and, where B > 1, lane 1 ending in a padded suffix (valid = 0); with
+    floor two frames of lane 0 scaled by 1e-38, so that (S <= 9) their sums
+    lie under the 1e-37 floor."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     log_p = 3.0 * torch.randn((T, B, S), generator=gen, device="cuda")
     w = torch.exp(log_p - log_p.amax(-1, keepdim=True))
@@ -258,6 +260,8 @@ def _scan_case(T, B, S, seed):
     if S > 1:
         w[:, 0, -1] = 0.0
         pi[0, -1] = 0.0
+    if floor:
+        w[T // 3:T // 3 + 2, 0] *= 1e-38
     pi /= pi.sum(-1, keepdim=True)
     valid = torch.ones((T, B), device="cuda")
     if B > 1:
@@ -266,16 +270,25 @@ def _scan_case(T, B, S, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,B,S", [(40, 3, 5), (600, 4, 31), (130, 1, 6),
-                                   (90, 7, 33), (60, 5, 64), (50, 6, 128),
-                                   (3, 9, 100), (1, 2, 4)])
-def test_fb_scan_cuda_kernels_match_plain_twins(T, B, S):
+@pytest.mark.parametrize("T,B,S,floor", [
+    (40, 3, 5, False), (600, 4, 31, False), (130, 1, 6, False),
+    (90, 7, 33, False), (60, 5, 64, False), (50, 6, 128, False),
+    (3, 9, 100, False), (1, 2, 4, False),
+    (1, 5, 31, False), (2, 5, 31, False), (3, 3, 8, False),
+    (15, 5, 31, False), (17, 5, 31, False), (63, 5, 1, False),
+    (65, 37, 1, False), (47, 9, 3, False), (33, 11, 9, False),
+    (200, 5, 8, True), (120, 4, 3, True)])
+def test_fb_scan_cuda_kernels_match_plain_twins(T, B, S, floor):
     """K3, K4 and K5 against their twins on the filled weights fb_scan
-    hands them; each wrapper counts its launch. The shapes cover 1, 2 and 4
-    speakers per thread, batches that are no multiple of the 4 lanes per
-    block, and walks shorter than the 4 frames kept in flight."""
+    hands them; each wrapper counts its launch. The shapes cover every
+    group shape of K3 and K5 (S=1 and 3: 32 lanes a warp; 5-8: 16; 9: 8;
+    31: 4; 33-64: 2; 100-128: 1) with batches that do not fill a warp,
+    K4's 1, 2 and 4 speakers per thread and batches that are no multiple of
+    its 4 lanes per block, walks of 1-3 frames, walks one frame under and
+    over one staged chunk (S=31: 16 rows; S=1: 64), and frames whose sum
+    lies under the 1e-37 floor."""
     _need_card()
-    w, valid, col, pinit = _scan_case(T, B, S, seed=T + S)
+    w, valid, col, pinit = _scan_case(T, B, S, seed=T + S, floor=floor)
     vm = valid[:, :, None]
     wf = (w * vm + (1 - vm) / S).contiguous()
     ok = valid.bool()
@@ -304,6 +317,34 @@ def test_fb_scan_cuda_kernels_match_plain_twins(T, B, S):
     t = fbs.fb_scan(w, valid, col, pinit, 0.9, fused=False)
     torch.testing.assert_close(f[2][ok], t[2][ok], rtol=1e-5, atol=0)
     torch.testing.assert_close(f[0][ok], t[0][ok], atol=1e-6, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 9, 31, 33, 128])
+def test_fb_scan_lanes_do_not_depend_on_their_batch(S):
+    """K3 and K5: a lane of a batch of 70 is bit-equal to the same lane
+    launched alone and at another place among other neighbours (the group
+    that holds a lane depends on S only, and a warp's lanes never exchange
+    values)."""
+    _need_card()
+    T, B = 97, 70
+    w, valid, col, pinit = _scan_case(T, B, S, seed=S)
+    vm = valid[:, :, None]
+    wf = (w * vm + (1 - vm) / S).contiguous()
+
+    def run(idx):
+        args = (wf[:, idx].contiguous(), col[idx].contiguous())
+        return (*fbs.fb_scan_fused(*args, pinit[idx].contiguous(), 0.9),
+                fbs.fb_scan_bwd(*args, 0.9))
+
+    full = run(slice(None))
+    for i in (0, 1, 33, B - 1):
+        alone = run(slice(i, i + 1))
+        among = run(torch.tensor([(i + 9) % B, 60, i, 2], device="cuda"))
+        torch.cuda.synchronize()
+        for f, a, m in zip(full, alone, among):
+            assert torch.equal(f[:, i], a[:, 0])
+            assert torch.equal(f[:, i], m[:, 2])
 
 
 @pytest.mark.gpu

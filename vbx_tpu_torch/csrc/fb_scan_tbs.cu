@@ -29,30 +29,54 @@
 // from the TPU kernels' by a per-frame scale only, which every consumer
 // divides out.
 //
-// Design. One warp walks one chain of one lane, its carry in registers; a
-// thread holds speakers lane, lane + 32, ... (at most 4: S <= 128, the API's
-// cap) and the per-frame sums are warp-shuffle butterflies, so a walk needs no
-// barrier. A block holds kLanesPerBlock lanes; in the fused kernel its first
-// half of warps run the forward chains and its second half the backward
-// chains of the same lanes (the two are independent). The 1e-37 floor sits
-// just above float32's normal range: IEEE division, no fast math.
-//
 // Bound: bytes. The fused walk reads w once and writes ahat and bhat once
-// (at T=1025, B=256, S=31 about 98 MB, ~29 us at 3.35 TB/s); it is T
-// dependent steps, each one or two shuffle reductions and a division, so the
-// kernel is latency-bound far above that. A step's frame is a fresh line
-// B * S floats after the last one, and its latency from device memory is
-// longer than the rest of the step. Each chain therefore keeps kAhead frames
-// of w in flight as asynchronous copies (cp.async) into a ring of staging
-// frames in shared memory, 32 * KPT floats per frame per warp: the copy of
-// frame t + kAhead starts while frame t is computed, and a thread reads back
-// only the slots it copied itself, so waiting for its own copy groups is the
-// only synchronization. A first version held the ring in registers (plain
-// loads issued kAhead steps early): on an H100 that hid nothing (1, 4 and 8
-// frames in flight took the same time, 1207 cycles per forward step at
-// 1980 MHz, 655 of them the load), while the staged copies take the load off
-// the step (scripts/torch_fb_scan_tuning.py). What remains is the IEEE
-// division, about half of a forward step, and the shuffle sums.
+// (at T=1025, B=256, S=31 about 98 MB, ~29 us at 3.35 TB/s); but it is T
+// dependent steps per lane, every lane's chain runs at once, and so its time
+// is T x the latency of one step, far above that bound.
+//
+// K3 and K5 (fb_scan_fused_kernel, fb_scan_bwd_kernel) are built like K1's
+// narrow form (fb_fused_sb.cu, fb_step.cuh), which does the same walks in
+// the [B, T, S] layout:
+//
+// - A lane's S speakers are held by a group of G threads, P speakers each
+//   (fb_step.cuh: pick_group, from S alone, so a lane's result does not
+//   depend on its batch); a warp holds 32 / G consecutive lanes b0 ..
+//   b0 + 32/G - 1, whose frame t is one row of (32/G) * S contiguous floats
+//   at (t * B + b0) * S. Lanes past the batch's end repeat its last lane
+//   and store nothing. Blocks are one warp; in K3 blockIdx.y 0 runs the
+//   forward chains and 1 the backward chains.
+// - w reaches the step through a ring of kStages chunks of rows in shared
+//   memory, one bulk copy a row, counted by the buffer's mbarrier
+//   (fb_step.cuh: RowStager). The rows of a chunk land one fixed stride
+//   apart (congruent to the frame stride modulo 16, so no per-row offset is
+//   kept), and the step reads the next frame one stride ahead through a
+//   moving pointer; past a chunk's end it reads the buffer's padding.
+// - The step has no branch but the reciprocal's rare one: the forward
+//   chain carries its prior x (pinit before frame 0) and the chunk loop
+//   around the frame loop replaces any test of t.
+// - One butterfly a backward step: sum_s b_t = lp * sum(u) + S * sum(col u)
+//   (every one of the S speakers, absent ones too, adds sum(col u)), so the
+//   two sums ride the same shuffles.
+// - The normalizing reciprocal is the hardware approximation, the IEEE
+//   division only for sums at the floor and above 1e30
+//   (fb_step.cuh: norm_recip).
+//
+// On an H100 at 1980 MHz (T=1025, B=256, S=31) K3 and K5 take ~320 cycles a
+// step where K1 takes 261; the difference is the issue of the rows' bulk
+// copies, ~50 cycles a row (one thread issuing a chunk's rows, or one
+// mbarrier arrival a chunk in place of one a row, is no better).
+//
+// K4 (fb_scan_fwd_kernel) keeps the first design of this file: one warp per
+// chain, 4 lanes a block, a thread holds speakers lane, lane + 32, ... (at
+// most 4: S <= 128, the API's cap), the per-frame sum a 32-wide
+// shuffle butterfly, kAhead frames of w in flight as per-thread 4-byte
+// cp.async copies into a shared-memory ring (each thread reads back only
+// the slots it copied), and the IEEE division; on an H100 at 1980 MHz it
+// takes ~565 cycles a step, ~240 of them the division, where K3 and K5
+// take ~320 (scripts/torch_fb_scan_tuning.py times the three kernels and
+// their variants).
+
+#include "fb_step.cuh"
 
 #include <cuda_runtime.h>
 
@@ -182,80 +206,211 @@ __device__ __forceinline__ void forward_chain(
   }
 }
 
-// Backward chain of lane b: writes bhat at frames T-1 .. 0. Step f reads
-// w[f] (the w_{t+1} of output frame f - 1).
-template <int KPT>
-__device__ __forceinline__ void backward_chain(
-    const float* __restrict__ w, const float* __restrict__ col, float lp,
-    int T, int B, int S, int b, int lane, float* stage,
-    float* __restrict__ bhat) {
-  const size_t step = static_cast<size_t>(B) * S;
-  const float* wl = w + static_cast<size_t>(b) * S;
-  float* bl = bhat + static_cast<size_t>(b) * S;
-  float colr[KPT], carry[KPT];
-  load_frame<KPT>(col + static_cast<size_t>(b) * S, lane, S, colr);
-  const float uniform = 1.f / static_cast<float>(S);
+// ---- K3 and K5: grouped lanes over staged rows ----------------------------
+
+namespace rows {
+
+using namespace fb_step;
+
+// Where a thread of a one-warp block stands: the lane it computes (b), its
+// place in the lane's group (g), its lane's offset in the staged row (rd,
+// floats) and how many speakers it may store (S, or 0 past the batch).
+struct Lane {
+  int b, g, rd, s_store;
+};
+
+// Sets up the warp's ring over rows of w and says where this thread stands.
+template <int G>
+__device__ __forceinline__ Lane setup(RowStager<float>& st,
+                                      const float* __restrict__ w, int T,
+                                      int B, int S, int log_f, int stride,
+                                      int buf_bytes, bool forward,
+                                      char* smem) {
+  constexpr int kLanes = 32 / G;
+  const int grp = threadIdx.x / G;
+  const int b0 = blockIdx.x * kLanes;
+  const int nl = min(kLanes, B - b0);  // lanes of the batch in this warp
+  const int i = min(grp, nl - 1);      // lanes past B repeat lane B - 1
+  st.init(w, static_cast<size_t>(T) * B * S, w + static_cast<size_t>(b0) * S,
+          static_cast<size_t>(B) * S, nl * S, T, log_f, forward, smem, stride,
+          buf_bytes, smem + kStages * buf_bytes, threadIdx.x);
+  return Lane{b0 + i, static_cast<int>(threadIdx.x) % G, i * S,
+              grp < nl ? S : 0};
+}
+
+// Forward chain of lane l.b: frames 0 .. T-1. x is the prior of the frame
+// to come, lp * ahat_{t-1} + col, and pinit before frame 0.
+template <int G, int P>
+__device__ __forceinline__ void forward_rows(RowStager<float>& st,
+                                             const float* __restrict__ col,
+                                             const float* __restrict__ pinit,
+                                             float lp, int B, int S,
+                                             const Lane& l,
+                                             float* __restrict__ ahat) {
+  const size_t step = static_cast<size_t>(B) * S;  // floats between frames
+  const int cs = st.stride / 4;                    // floats between rows
+  float colr[P], x[P], wcur[P], wnxt[P];
+  read_frame<float, G, P>(col + static_cast<size_t>(l.b) * S, l.g, S, colr);
+  read_frame<float, G, P>(pinit + static_cast<size_t>(l.b) * S, l.g, S, x);
+  st.begin();
+  for (int q = 0; q < st.n_chunks; ++q) {
+    st.enter(q);
+    const int t0 = st.chunk_lo(q), t1 = st.chunk_hi(q);
+    const float* wp = st.chunk_data(q) + l.rd;
+    float* ap = ahat + static_cast<size_t>(t0) * step +
+                static_cast<size_t>(l.b) * S;
+    read_frame<float, G, P>(wp, l.g, S, wcur);
+#pragma unroll 4
+    for (int t = t0; t < t1; ++t) {
+      wp += cs;  // past the chunk's last row: the buffer's padding, unused
+      read_frame<float, G, P>(wp, l.g, S, wnxt);
+      float a[P], carry[P];
 #pragma unroll
-  for (int k = 0; k < KPT; ++k) carry[k] = lane + 32 * k < S ? uniform : 0.f;
-  store_frame<KPT>(bl + static_cast<size_t>(T - 1) * step, lane, S, carry);
+      for (int k = 0; k < P; ++k) a[k] = wcur[k] * x[k];
+      const float r = norm_recip(group_sum<G>(tree_sum<P>(a)), true);
 #pragma unroll
-  for (int i = 0; i < kAhead; ++i) {
-    const int f = T - 1 - i;
-    stage_frame<KPT>(wl + (f >= 1 ? f : 0) * step, lane, f >= 1 ? S : 0,
-                     stage + i * 32 * KPT);
-  }
-  for (int f0 = T - 1; f0 >= 1; f0 -= kAhead) {
+      for (int k = 0; k < P; ++k) carry[k] = a[k] * r;
+      write_frame<float, G, P>(ap, l.g, l.s_store, carry);
 #pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const int f = f0 - i;
-      if (f >= 1) {
-        float* slot = stage + i * 32 * KPT;
-        float u[KPT];
-        float part = 0.f;
-        cp_async_wait<kAhead - 1>();
-        read_staged<KPT>(slot, lane, S, u);
-#pragma unroll
-        for (int k = 0; k < KPT; ++k) {
-          u[k] *= carry[k];
-          part += colr[k] * u[k];
-        }
-        stage_frame<KPT>(wl + (f - kAhead >= 1 ? f - kAhead : 0) * step,
-                         lane, f - kAhead >= 1 ? S : 0, slot);
-        const float cu = warp_sum(part);
-        float bb[KPT];
-        part = 0.f;
-#pragma unroll
-        for (int k = 0; k < KPT; ++k) {
-          bb[k] = lane + 32 * k < S ? lp * u[k] + cu : 0.f;
-          part += bb[k];
-        }
-        const float cb = fmaxf(warp_sum(part), kTiny);
-#pragma unroll
-        for (int k = 0; k < KPT; ++k) carry[k] = bb[k] / cb;
-        store_frame<KPT>(bl + (f - 1) * step, lane, S, carry);
+      for (int k = 0; k < P; ++k) {
+        x[k] = fmaf(lp, carry[k], colr[k]);
+        wcur[k] = wnxt[k];
       }
+      ap += step;
     }
   }
 }
 
-template <int KPT>
-__global__ void __launch_bounds__(64 * kLanesPerBlock)
+// Backward chain of lane l.b: writes bhat at frames T-1 .. 0; step f reads
+// w_f (the w_{t+1} of output frame f - 1).
+template <int G, int P>
+__device__ __forceinline__ void backward_rows(RowStager<float>& st,
+                                              const float* __restrict__ col,
+                                              float lp, int T, int B, int S,
+                                              const Lane& l,
+                                              float* __restrict__ bhat) {
+  const size_t step = static_cast<size_t>(B) * S;
+  const int cs = st.stride / 4;
+  const float s_f = static_cast<float>(S);
+  float colr[P], carry[P], wcur[P], wnxt[P];
+  read_frame<float, G, P>(col + static_cast<size_t>(l.b) * S, l.g, S, colr);
+  const float uniform = 1.f / s_f;
+#pragma unroll
+  for (int k = 0; k < P; ++k) carry[k] = l.g + G * k < S ? uniform : 0.f;
+  write_frame<float, G, P>(bhat + static_cast<size_t>(T - 1) * step +
+                               static_cast<size_t>(l.b) * S,
+                           l.g, l.s_store, carry);
+  if (T < 2) return;
+  st.begin();
+  for (int q = 0; q < st.n_chunks; ++q) {
+    st.enter(q);
+    const int lo = st.chunk_lo(q), f0 = max(lo, 1), f1 = st.chunk_hi(q) - 1;
+    const float* wp = st.chunk_data(q) + (f1 - lo) * cs + l.rd;
+    float* bp = bhat + static_cast<size_t>(f1 - 1) * step +
+                static_cast<size_t>(l.b) * S;
+    read_frame<float, G, P>(wp, l.g, S, wcur);
+#pragma unroll 4
+    for (int f = f1; f >= f0; --f) {
+      wp -= cs;  // before the chunk's first row: the buffer's padding, unused
+      read_frame<float, G, P>(wp, l.g, S, wnxt);
+      float u[P], cu_part[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        u[k] = wcur[k] * carry[k];
+        cu_part[k] = colr[k] * u[k];
+      }
+      float su = tree_sum<P>(u);
+      float cu = tree_sum<P>(cu_part);
+      group_sum2<G>(su, cu);
+      // sum_s (lp * u_s + cu) over the lane's S speakers
+      const float r = norm_recip(fmaf(lp, su, s_f * cu), true);
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        carry[k] = fmaf(lp, u[k], cu) * r;
+        wcur[k] = wnxt[k];
+      }
+      write_frame<float, G, P>(bp, l.g, l.s_store, carry);
+      bp -= step;
+    }
+  }
+}
+
+template <int G, int P>
+__global__ void __launch_bounds__(32)
     fb_scan_fused_kernel(const float* __restrict__ w,
                          const float* __restrict__ col,
                          const float* __restrict__ pinit, float lp, int T,
-                         int B, int S, float* __restrict__ ahat,
-                         float* __restrict__ bhat) {
-  __shared__ float stage[2 * kLanesPerBlock][kAhead * 32 * KPT];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * kLanesPerBlock + warp % kLanesPerBlock;
-  if (b >= B) return;
-  if (warp < kLanesPerBlock)
-    forward_chain<KPT, false>(w, col, pinit, lp, T, B, S, b, lane,
-                              stage[warp], ahat, nullptr);
+                         int B, int S, int log_f, int stride, int buf_bytes,
+                         float* __restrict__ ahat, float* __restrict__ bhat) {
+  extern __shared__ __align__(16) char smem[];
+  RowStager<float> st;
+  const bool forward = blockIdx.y == 0;
+  const Lane l =
+      setup<G>(st, w, T, B, S, log_f, stride, buf_bytes, forward, smem);
+  if (forward)
+    forward_rows<G, P>(st, col, pinit, lp, B, S, l, ahat);
   else
-    backward_chain<KPT>(w, col, lp, T, B, S, b, lane, stage[warp], bhat);
+    backward_rows<G, P>(st, col, lp, T, B, S, l, bhat);
 }
+
+template <int G, int P>
+__global__ void __launch_bounds__(32)
+    fb_scan_bwd_kernel(const float* __restrict__ w,
+                       const float* __restrict__ col, float lp, int T, int B,
+                       int S, int log_f, int stride, int buf_bytes,
+                       float* __restrict__ bhat) {
+  extern __shared__ __align__(16) char smem[];
+  RowStager<float> st;
+  const Lane l = setup<G>(st, w, T, B, S, log_f, stride, buf_bytes, false,
+                          smem);
+  backward_rows<G, P>(st, col, lp, T, B, S, l, bhat);
+}
+
+// K3 (ahat given) or K5 (ahat null) for one group shape: the ring's
+// geometry from the row of a warp's lanes, one-warp blocks, and in K3 a
+// second row of blocks for the backward chains.
+template <int G, int P>
+int launch(const float* w, const float* col, const float* pinit, float lp,
+           int T, int B, int S, float* ahat, float* bhat,
+           cudaStream_t stream) {
+  constexpr int kLanes = 32 / G;
+  const int row_bytes = kLanes * S * static_cast<int>(sizeof(float));
+  const int log_f = pick_log_chunk(row_bytes);
+  const int stride = row_stride_bytes(
+      row_bytes, static_cast<long long>(B) * S * sizeof(float));
+  const int buf = row_ring_bytes(stride, log_f);
+  // buffers and mbarriers: a row is at most 32 * P * 4 = 512 bytes, so
+  // this stays under 35 KB, inside the default 48 KB of a block
+  const int smem = kStages * (buf + 8);
+  const int n_blocks = (B + kLanes - 1) / kLanes;
+  if (ahat != nullptr)
+    fb_scan_fused_kernel<G, P><<<dim3(n_blocks, 2), 32, smem, stream>>>(
+        w, col, pinit, lp, T, B, S, log_f, stride, buf, ahat, bhat);
+  else
+    fb_scan_bwd_kernel<G, P><<<n_blocks, 32, smem, stream>>>(
+        w, col, lp, T, B, S, log_f, stride, buf, bhat);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_any(const float* w, const float* col, const float* pinit,
+               float lp, int T, int B, int S, float* ahat, float* bhat,
+               cudaStream_t stream) {
+  int G, P;
+  pick_group(S, &G, &P);
+#define FB_SCAN_GROUP(GG, PP)                                           \
+  if (G == GG && P == PP)                                               \
+    return launch<GG, PP>(w, col, pinit, lp, T, B, S, ahat, bhat, stream);
+  FB_SCAN_GROUP(1, 4)
+  FB_SCAN_GROUP(2, 4)
+  FB_SCAN_GROUP(4, 4)
+  FB_SCAN_GROUP(8, 4)
+  FB_SCAN_GROUP(16, 4)
+  FB_SCAN_GROUP(32, 4)
+#undef FB_SCAN_GROUP
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace rows
 
 template <int KPT>
 __global__ void __launch_bounds__(32 * kLanesPerBlock)
@@ -272,19 +427,6 @@ __global__ void __launch_bounds__(32 * kLanesPerBlock)
                            stage[warp], ahat, cfw);
 }
 
-template <int KPT>
-__global__ void __launch_bounds__(32 * kLanesPerBlock)
-    fb_scan_bwd_kernel(const float* __restrict__ w,
-                       const float* __restrict__ col, float lp, int T, int B,
-                       int S, float* __restrict__ bhat) {
-  __shared__ float stage[kLanesPerBlock][kAhead * 32 * KPT];
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kLanesPerBlock + warp;
-  if (b >= B) return;
-  backward_chain<KPT>(w, col, lp, T, B, S, b, threadIdx.x & 31, stage[warp],
-                      bhat);
-}
-
 bool bad_shape(int T, int B, int S) {
   return T < 1 || B < 1 || S < 1 || S > kMaxSpeakers;
 }
@@ -295,31 +437,18 @@ int blocks(int B) { return (B + kLanesPerBlock - 1) / kLanesPerBlock; }
 
 // Plain C entry points (loaded with ctypes). Each launches on `stream`, does
 // not synchronize, allocates nothing, and returns cudaGetLastError() after
-// the launch (0 = cudaSuccess). The instance holds 1, 2 or 4 speakers per
-// thread by S.
+// the launch (0 = cudaSuccess). K3 and K5 pick their group shape from S; K4
+// holds 1, 2 or 4 speakers per thread by S.
 
 extern "C" int fb_scan_fused_launch(const void* w, const void* col,
                                     const void* pinit, float lp, int T, int B,
                                     int S, void* ahat, void* bhat,
                                     void* stream) {
   if (bad_shape(T, B, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* wp = static_cast<const float*>(w);
-  const auto* cp = static_cast<const float*>(col);
-  const auto* pp = static_cast<const float*>(pinit);
-  auto* ap = static_cast<float*>(ahat);
-  auto* bp = static_cast<float*>(bhat);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 64 * kLanesPerBlock;
-  if (S <= 32)
-    fb_scan_fused_kernel<1><<<blocks(B), threads, 0, st>>>(wp, cp, pp, lp, T,
-                                                           B, S, ap, bp);
-  else if (S <= 64)
-    fb_scan_fused_kernel<2><<<blocks(B), threads, 0, st>>>(wp, cp, pp, lp, T,
-                                                           B, S, ap, bp);
-  else
-    fb_scan_fused_kernel<4><<<blocks(B), threads, 0, st>>>(wp, cp, pp, lp, T,
-                                                           B, S, ap, bp);
-  return static_cast<int>(cudaGetLastError());
+  return rows::launch_any(
+      static_cast<const float*>(w), static_cast<const float*>(col),
+      static_cast<const float*>(pinit), lp, T, B, S, static_cast<float*>(ahat),
+      static_cast<float*>(bhat), static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fb_scan_fwd_launch(const void* w, const void* col,
@@ -349,19 +478,8 @@ extern "C" int fb_scan_bwd_launch(const void* w, const void* col, float lp,
                                   int T, int B, int S, void* bhat,
                                   void* stream) {
   if (bad_shape(T, B, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* wp = static_cast<const float*>(w);
-  const auto* cp = static_cast<const float*>(col);
-  auto* bp = static_cast<float*>(bhat);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 32 * kLanesPerBlock;
-  if (S <= 32)
-    fb_scan_bwd_kernel<1><<<blocks(B), threads, 0, st>>>(wp, cp, lp, T, B, S,
-                                                         bp);
-  else if (S <= 64)
-    fb_scan_bwd_kernel<2><<<blocks(B), threads, 0, st>>>(wp, cp, lp, T, B, S,
-                                                         bp);
-  else
-    fb_scan_bwd_kernel<4><<<blocks(B), threads, 0, st>>>(wp, cp, lp, T, B, S,
-                                                         bp);
-  return static_cast<int>(cudaGetLastError());
+  return rows::launch_any(static_cast<const float*>(w),
+                          static_cast<const float*>(col), nullptr, lp, T, B,
+                          S, nullptr, static_cast<float*>(bhat),
+                          static_cast<cudaStream_t>(stream));
 }

@@ -22,6 +22,11 @@
 //   ahead of the walk (Stager): a load from device memory issued into
 //   registers one step ahead was measured at ~260-360 cycles of a step, and
 //   per-thread 16-byte cp.async copies at ~25-40.
+//
+// The [T, B, S] walks of fb_scan_tbs.cu (K3, K5) use the same group sums
+// and reciprocal; their w is staged row by row (RowStager: a warp's lanes
+// at one frame are one row of the time-major tensor, and consecutive
+// frames' rows are B * S values apart).
 
 #pragma once
 
@@ -87,6 +92,35 @@ inline int ring_stride_bytes(int chunk_bytes, int frame_bytes, int G) {
   const int want = (G < 4 ? 4 : G) % 32;
   while (words % 32 != want) words += 4;
   return words * 4;
+}
+
+// Bytes between consecutive rows in a RowStager buffer, for rows of at most
+// `row_bytes` (a multiple of 4) that lie `frame_stride_bytes` apart in the
+// tensor: the least stride >= row_bytes + 12 that is congruent to the frame
+// stride modulo 16. A bulk copy keeps an address's offset modulo 16, so
+// with this stride the rows of a chunk land exactly one stride apart
+// whatever their offsets, and the walk moves its read pointer by a
+// constant. The copies of two neighbouring rows never overlap: with o and
+// o' their offsets from a 16-byte boundary, row r's aligned run ends
+// ceil16(o + row_bytes) - o bytes after its first byte lands and row
+// r + 1's begins stride - o' bytes after it; ceil16(o + row_bytes) - o + o'
+// is at most row_bytes + 27 and congruent to the frame stride modulo 16
+// (o' = o + frame stride, modulo 16), so it is at most the stride. The rows
+// of a buffer are read one at a time by the whole warp, so they need no
+// padding against bank conflicts.
+inline int row_stride_bytes(int row_bytes, long long frame_stride_bytes) {
+  int stride = row_bytes + 12;
+  while ((stride - frame_stride_bytes) % 16 != 0) stride += 4;
+  return stride;
+}
+
+// Bytes of one RowStager buffer for chunks of 2^log_f rows: one stride in
+// front (the backward walk reads one row before a chunk), the rows, one
+// stride behind (the forward walk reads one row past it) and 16 bytes for
+// the first row's offset, in multiples of 16.
+inline int row_ring_bytes(int stride, int log_f) {
+  return ((stride + 15) / 16 * 16 + ((1 << log_f) + 1) * stride + 16 + 15) /
+         16 * 16;
 }
 
 // ---- sums ---------------------------------------------------------------
@@ -156,6 +190,14 @@ __device__ __forceinline__ unsigned smem_address(const void* p) {
 __device__ __forceinline__ void mbar_init(void* mbar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
                    smem_address(mbar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// an mbarrier whose phase completes after `count` arrivals (and their bytes)
+__device__ __forceinline__ void mbar_init_count(void* mbar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_address(mbar)),
+               "r"(count)
                : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
@@ -339,6 +381,121 @@ struct Stager {
     return reinterpret_cast<const IO*>(
         ring + (q % kStages) * stride + front +
         (chunk_start(chunk_of(q)) & 15));
+  }
+};
+
+// The ring of one warp's walk over a time-major [T, B, S] tensor, whose
+// 32 / G lanes at frame t are one row of `row_elements` values starting at
+// `first_row` + t * `frame_elements`. Frames are cut into chunks of
+// 1 << log_f rows (the last may be short), walked forward or backward as
+// in Stager; the walk's chunk q lives in buffer q % kStages and completes
+// the (q / kStages)-th phase of that buffer's mbarrier. Each row is one
+// bulk copy of its 16-byte-aligned run, issued by thread r % 32 for row r
+// of a chunk through stage_bytes (cut where the run would leave the
+// tensor, the few elements there loaded singly by the same thread). The
+// mbarrier counts one arrival per row of a full chunk; rows past a short
+// chunk's end arrive with no copy, so a phase completes when every row has
+// landed. Row r of chunk q lands at chunk_data(q) + r * stride bytes
+// (row_stride_bytes). The warp owns the ring: begin() and enter() as in
+// Stager, meeting at __syncwarp.
+template <typename IO>
+struct RowStager {
+  uintptr_t lo, hi, first;
+  size_t frame_stride;
+  char* ring;
+  unsigned long long* mbars;
+  int stride, buf_bytes, front, row_bytes, n_frames, log_f, n_chunks, lane;
+  bool forward;
+
+  // mbar_base: kStages mbarriers (8 bytes each, 8-byte aligned); ring_base
+  // and buffer_bytes multiples of 16
+  __device__ __forceinline__ void init(const IO* tensor, size_t n_elements,
+                                       const IO* first_row,
+                                       size_t frame_elements,
+                                       int row_elements, int frames,
+                                       int log_frames, bool fwd,
+                                       char* ring_base, int stride_bytes,
+                                       int buffer_bytes, char* mbar_base,
+                                       int thread) {
+    lo = reinterpret_cast<uintptr_t>(tensor);
+    hi = lo + n_elements * sizeof(IO);
+    first = reinterpret_cast<uintptr_t>(first_row);
+    frame_stride = frame_elements * sizeof(IO);
+    ring = ring_base;
+    mbars = reinterpret_cast<unsigned long long*>(mbar_base);
+    stride = stride_bytes;
+    buf_bytes = buffer_bytes;
+    front = (stride_bytes + 15) / 16 * 16;
+    row_bytes = row_elements * static_cast<int>(sizeof(IO));
+    n_frames = frames;
+    log_f = log_frames;
+    n_chunks = (frames + (1 << log_frames) - 1) >> log_frames;
+    forward = fwd;
+    lane = thread;
+  }
+
+  // address of the first byte of frame t's row
+  __device__ __forceinline__ uintptr_t row_start(int t) const {
+    return first + static_cast<size_t>(t) * frame_stride;
+  }
+
+  // whether the walk's chunk q is copied at all
+  __device__ __forceinline__ bool staged(int q) const { return n_chunks > q; }
+
+  __device__ __forceinline__ int chunk_of(int q) const {
+    return forward ? q : n_chunks - 1 - q;
+  }
+  __device__ __forceinline__ int chunk_lo(int q) const {
+    return chunk_of(q) << log_f;
+  }
+  __device__ __forceinline__ int chunk_hi(int q) const {
+    return min((chunk_of(q) + 1) << log_f, n_frames);
+  }
+
+  // where the first byte of chunk q's first row lands
+  __device__ __forceinline__ char* chunk_slot(int q) const {
+    return ring + (q % kStages) * buf_bytes + front +
+           (row_start(chunk_lo(q)) & 15);
+  }
+
+  __device__ __forceinline__ void start(int q) {
+    if (!staged(q)) return;
+    const int t0 = chunk_lo(q), n = chunk_hi(q) - t0;
+    char* slot = chunk_slot(q);
+    void* mbar = mbars + q % kStages;
+    for (int r = lane; r < (1 << log_f); r += 32) {
+      if (r < n) {
+        const uintptr_t s = row_start(t0 + r);
+        // 16-byte aligned: stride = frame_stride (mod 16)
+        stage_bytes<IO>(lo, hi, s, s + row_bytes,
+                        slot + r * stride - (s & 15), mbar, 0, 1);
+      } else {
+        bulk_copy(slot, 0, 0u, mbar);  // no such row: arrive alone
+      }
+    }
+  }
+
+  __device__ __forceinline__ void enter(int q) {
+    if (staged(q)) mbar_wait(mbars + q % kStages, q / kStages);
+    __syncwarp();
+    start(q + kStages - 1);
+  }
+
+  __device__ __forceinline__ void begin() {
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kStages; ++i)
+        mbar_init_count(mbars + i, 1 << log_f);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < kStages - 1; ++q) start(q);
+  }
+
+  // chunk q's first row in the ring (chunk q must have been entered); row
+  // r of the chunk follows it at r * stride bytes
+  __device__ __forceinline__ const IO* chunk_data(int q) const {
+    return reinterpret_cast<const IO*>(chunk_slot(q));
   }
 };
 
