@@ -29,12 +29,13 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    tests/test_torch_gpu.py, and its rows bit-equal whatever lanes share
    the launch. K3-K5 (fb_scan_tbs, the [T, B, S] walks) at SCAN_SHAPES
    (the A/B tool's shape T=1025, B=256, S=31, tests/test_pallas.py's
-   shapes, every group shape of K3 and K5 with batches that do not fill a
+   shapes, every group shape of K3-K5 with batches that do not fill a
    warp, walks of 1-3 frames and one frame under and over a staged chunk,
-   frames under the 1e-37 floor) within SCAN_BARS, the API's fused route
-   against its two-pass route, K3 against K1 on the same inputs
-   transposed, and K3 and K5 lanes of the A/B launch bit-equal to the same
-   lanes launched alone and among other neighbours. CUDA-event times
+   frames under the 1e-37 floor) within SCAN_BARS, K4's ahat bit-equal to
+   K3's, the API's fused route against its two-pass route, K3 against K1
+   on the same inputs transposed, and K3, K4 and K5 lanes of the A/B launch
+   bit-equal to the same lanes launched alone and among other neighbours.
+   CUDA-event times
    (median of 25 launches), the twin's time, and the bytes/operations
    bound;
 4. main path: a synthetic corpus of 64 recordings (T 500-2000 x-vectors,
@@ -547,15 +548,15 @@ def k2_phase(io_name: str) -> dict:
 
 # K3-K5 shapes: (name, T, B, S, valid frames of lane B-1 or None, floor).
 # The A/B tool's shape; tests/test_pallas.py's (40, 5, 3), (600, 31, 4) and
-# its padded case T=100+30, S=6, B=1; K4's 2 and 4 speakers per thread; a
-# batch that is no multiple of K4's 4 lanes per block. Then what K3's and
-# K5's design can get wrong: walks of 1-3 frames; walks one frame under and
+# its padded case T=100+30, S=6, B=1; S=64 and 128 (2 and 1 lanes a warp);
+# a batch of 37. Then what the grouped-lane design of K3-K5 can get wrong
+# (K4 also its cfw store): walks of 1-3 frames; walks one frame under and
 # over one staged chunk (S=31: 16 rows); S=1 and 3 (32 lanes a warp) and 9
 # (8 lanes a warp), with rows of B * S * 4 bytes that are no multiple of 16
 # (B=37, 9, 11: the rows of consecutive frames start at other offsets from
 # a 16-byte boundary); a batch of 5 lanes, which does not fill a warp of
 # 32; and (floor) two frames of lane 0 scaled by 1e-38, so that their sums
-# lie under the 1e-37 floor.
+# lie under the 1e-37 floor (K4 must store the floor, not the raw sum).
 SCAN_SHAPES = (("ab", 1025, 256, 31, 820, False),
                ("t40", 40, 3, 5, None, False),
                ("t600", 600, 4, 31, 480, False),
@@ -607,9 +608,10 @@ def scan_case(T, B, S, n_valid, seed, floor=False):
 
 def scan_phase() -> list:
     """K3 (fb_scan_fused), K4 (fb_scan_fwd) and K5 (fb_scan_bwd) against
-    their plain twins on the same card inputs at SCAN_SHAPES, the fused
-    route against the two-pass route, K3 against K1 on the same inputs
-    transposed, and the times at the A/B shape."""
+    their plain twins on the same card inputs at SCAN_SHAPES, K4's ahat
+    against K3's (bit for bit: one forward body), the fused route against
+    the two-pass route, K3 against K1 on the same inputs transposed, and
+    the times at the A/B shape."""
     import torch
 
     from vbx_tpu_torch.ops import fb_kernel
@@ -648,6 +650,10 @@ def scan_phase() -> list:
                 fail(f"{kname} at {name} (T={T}, B={B}, S={S}) disagrees "
                      f"with its plain twin on {bad}: {err}")
             checks[kname][name] = {"shape": [T, B, S], **err}
+        if not torch.equal(a3, a4):
+            fail(f"fb_scan_fwd's ahat at {name} (T={T}, B={B}, S={S}) is "
+                 f"not fb_scan_fused's bit for bit: max difference "
+                 f"{float((a3 - a4).abs().max())}")
         # the API's two routes against each other (the A/B tool's check)
         f = fbs.fb_scan(c["w"], c["valid"], col, pinit, lp, fused=True)
         t = fbs.fb_scan(c["w"], c["valid"], col, pinit, lp, fused=False)
@@ -733,10 +739,11 @@ def scan_bound(T, B, S, kernel) -> dict:
 
 
 def scan_batch_invariance(case) -> dict:
-    """K3 and K5: lanes of one launch against the same lanes launched alone
-    and among other neighbours (at another place in the batch); every
-    output must be bit-equal, because the group that holds a lane depends
-    on S only and a warp's lanes never exchange values."""
+    """K3, K4 and K5: lanes of one launch against the same lanes launched
+    alone and among other neighbours (at another place in the batch);
+    every output (K4's cfw too) must be bit-equal, because the group that
+    holds a lane depends on S only and a warp's lanes never exchange
+    values."""
     import torch
 
     from vbx_tpu_torch.ops import fb_scan_kernel as fbs
@@ -746,7 +753,8 @@ def scan_batch_invariance(case) -> dict:
 
     def run(idx):
         w, c = wf[:, idx].contiguous(), col[idx].contiguous()
-        return (*fbs.fb_scan_fused(w, c, pinit[idx].contiguous(), lp),
+        p = pinit[idx].contiguous()
+        return (*fbs.fb_scan_fused(w, c, p, lp), *fbs.fb_scan_fwd(w, c, p, lp),
                 fbs.fb_scan_bwd(w, c, lp))
 
     full = run(slice(None))
@@ -757,6 +765,7 @@ def scan_batch_invariance(case) -> dict:
                                   (B - 6) % B], device="cuda"))
         torch.cuda.synchronize()
         for name, f, a, m in zip(("fb_scan_fused ahat", "fb_scan_fused bhat",
+                                  "fb_scan_fwd ahat", "fb_scan_fwd cfw",
                                   "fb_scan_bwd bhat"), full, alone, among):
             if not (torch.equal(f[:, i], a[:, 0])
                     and torch.equal(f[:, i], m[:, 1])):
@@ -1355,9 +1364,10 @@ def main() -> int:
     for name, c in scan[0]["cross"].items():
         print(f"fb_scan cross-checks at {name}: {json.dumps(c)}")
     inv = scan[0]["batch_invariance"]
-    print(f"fb_scan_fused and fb_scan_bwd: lanes {inv['lanes']} of the batch "
-          f"of {inv['batch']} bit-equal to the same lanes launched alone and "
-          f"among other neighbours")
+    print(f"fb_scan_fused, fb_scan_fwd and fb_scan_bwd: lanes "
+          f"{inv['lanes']} of the batch of {inv['batch']} bit-equal to the "
+          f"same lanes launched alone and among other neighbours; "
+          f"fb_scan_fwd's ahat bit-equal to fb_scan_fused's at every shape")
     print(f"fb_scan_fwd then fb_scan_bwd: {scan[0]['two_pass_ms']:.4f} ms "
           f"(median of 25), {scan[0]['two_pass_ms'] / scan[0]['ms']:.2f}x "
           f"fb_scan_fused")

@@ -1,27 +1,26 @@
 #!/usr/bin/env python3
 """Time variants of the [T, B, S] walks on one CUDA card
-(vbx_tpu_torch/csrc/fb_scan_tbs.cu): K3, the fused walk, and K5, the
-backward walk, in their grouped-lane design, and K4, the forward walk, in
-the first design of that file.
+(vbx_tpu_torch/csrc/fb_scan_tbs.cu): K3, the fused walk, K4, the forward
+walk, and K5, the backward walk, all three in their grouped-lane design.
 
     python3 scripts/torch_fb_scan_tuning.py [summary.json]
 
 Each variant is the shipped source, or the header it shares with K1 and K2
 (csrc/fb_step.cuh), with a few lines replaced by text substitution
-(K3_VARIANTS, K5_VARIANTS, K4_VARIANTS below). K3 and K5: no unrolling;
-the IEEE reciprocal in place of the approximate one, or the approximate one
-without its rare branch; the row copies removed after the ring's first
-chunks (later chunks read what their buffer already holds); the per-frame
-stores removed (only the last frame is stored, so the walk cannot be
-optimized away); K3's forward chains alone and backward chains alone; 1 or
-2 speakers per thread instead of 4; 2 or 4 KB chunks instead of 8; two
-ring stages instead of three; only the first row of each chunk copied,
-one thread issuing all of a chunk's row copies, or one arrival on the
-chunk's mbarrier in place of one a row. K4: 1 or 8 lanes a block, 1 or 8 frames in
-flight, no per-frame stores, `__fdividef` in place of the IEEE division,
-no in-loop loads, and their combinations. Together they say what a step of
-each walk is made of. Variants are compiled first (one nvcc each for each
-distinct source, started together), then timed in turns, three rounds, by
+(K3_VARIANTS, K4_VARIANTS, K5_VARIANTS below). For all three: no
+unrolling; the IEEE reciprocal in place of the approximate one, or the
+approximate one without its rare branch; the row copies removed after the
+ring's first chunks (later chunks read what their buffer already holds);
+the per-frame stores removed (ahat, bhat and K4's cfw; only the last frame
+is stored, so the walk cannot be optimized away); 1 or 2 speakers per
+thread instead of 4; 2 or 4 KB chunks instead of 8; two ring stages
+instead of three; only the first row of each chunk copied, one thread
+issuing all of a chunk's row copies, or one arrival on the chunk's
+mbarrier in place of one a row. K3 also runs its forward chains alone and
+its backward chains alone; K4 also runs without its cfw store. Together
+they say what a step of each walk is made of. Variants are compiled first
+(one nvcc for each distinct source, started together: 20 builds), then
+timed in turns, three rounds, by
 CUDA events (median of 25 launches), at the kernel A/B tool's shape
 (SHAPE: T=1025, B=256, S=31). It prints the card's name and power limit
 first and, last, the SM clock nvidia-smi reads while the shipped K3 runs
@@ -55,10 +54,13 @@ SHAPE = (1025, 256, 31)     # T, B, S
 # only the ring's first kStages chunks are ever copied (RowStager)
 _NO_LOADS = (("{ return n_chunks > q; }",
               "{ return n_chunks > q && q < kStages; }"),)
+_CFW_STORE = "      if (c_store) *cp = fmaxf(c_raw, kTiny);\n"
 _NO_STORES = (
     ("      write_frame<float, G, P>(ap, l.g, l.s_store, carry);",
      "      write_frame<float, G, P>(ap, l.g, t == st.n_frames - 1 ? "
      "l.s_store : 0, carry);"),
+    (_CFW_STORE, _CFW_STORE.replace("if (c_store)",
+                                    "if (c_store && t == st.n_frames - 1)")),
     ("      write_frame<float, G, P>(bp, l.g, l.s_store, carry);",
      "      write_frame<float, G, P>(bp, l.g, f == 1 ? l.s_store : 0, "
      "carry);"))
@@ -152,44 +154,9 @@ K3_VARIANTS = {
 }
 
 
-def _k4(lanes=4, ahead=4, stores=True, ieee_div=True, loads=True):
-    """K4 (the first design: forward_chain) with lanes per block, frames in
-    flight, its stores, its IEEE division and its in-loop loads as given."""
-    subs = []
-    if lanes != 4:
-        subs.append(("constexpr int kLanesPerBlock = 4;",
-                     f"constexpr int kLanesPerBlock = {lanes};"))
-    if ahead != 4:
-        subs.append(("constexpr int kAhead = 4;",
-                     f"constexpr int kAhead = {ahead};"))
-    if not stores:    # keep only the final frame's stores
-        subs += [("store_frame<KPT>(al + t * step, lane, S, carry);",
-                  "if (t == T - 1) store_frame<KPT>(al + t * step, lane, S, "
-                  "carry);"),
-                 ("if (WITH_C && lane == 0)",
-                  "if (WITH_C && lane == 0 && t == T - 1)")]
-    if not ieee_div:
-        subs.append(("carry[k] = a[k] / c;",
-                     "carry[k] = __fdividef(a[k], c);"))
-    if not loads:
-        subs.append(("t + kAhead < T ? S : 0", "0"))
-    return tuple(subs), ()
-
-
-K4_VARIANTS = {
-    "shipped": _k4(),
-    "lanes_1": _k4(lanes=1),
-    "lanes_8": _k4(lanes=8),
-    "ahead_1": _k4(ahead=1),
-    "ahead_8": _k4(ahead=8),
-    "no_stores": _k4(stores=False),
-    "fdiv": _k4(ieee_div=False),
-    "no_stores_fdiv": _k4(stores=False, ieee_div=False),
-    "no_loads": _k4(loads=False),
-    "no_loads_no_stores": _k4(stores=False, loads=False),
-    "no_loads_no_stores_fdiv": _k4(stores=False, ieee_div=False,
-                                   loads=False),
-}
+# K4 is K3's forward chain with the cfw store: K5's variants, and one
+# without that store
+K4_VARIANTS = {**K5_VARIANTS, "no_cfw": (((_CFW_STORE, ""),), ())}
 
 # kernel: (its variants, its C entry point)
 KERNELS = {"K3 fb_scan_fused": (K3_VARIANTS, "fb_scan_fused_launch"),

@@ -1,15 +1,15 @@
-"""The arithmetic and the index code of the CUDA kernels K3 and K5
-(csrc/fb_scan_tbs.cu: fb_scan_fused_kernel, fb_scan_bwd_kernel), emulated
-in plain torch on the CPU and held to their plain twins and to vbx_tpu's
-fb_scan_pallas in interpret mode.
+"""The arithmetic and the index code of the CUDA kernels K3, K4 and K5
+(csrc/fb_scan_tbs.cu: fb_scan_fused_kernel, fb_scan_fwd_kernel,
+fb_scan_bwd_kernel), emulated in plain torch on the CPU and held to their
+plain twins and to vbx_tpu's fb_scan_pallas in interpret mode.
 
 The kernels only run on a card (tests/test_torch_gpu.py, chip_smoke.py).
 What can be wrong in their design without a card to show it is checked
 here: the per-frame sums taken in the kernels' order (speaker s = g + G k
 of thread g, a tree over k, then a shuffle butterfly over the G threads of
 the group), for every (G, P) instance; the backward chain's merged
-normalizer lp * sum(u) + S * sum(col u), with absent speakers on a lane; a
-reciprocal that is off by one or two ulp, as the hardware approximation
+normalizer lp * sum(u) + S * sum(col u), with absent speakers on a lane;
+K4's c_t, the floored forward sum; a reciprocal that is off by one or two ulp, as the hardware approximation
 may be; frames whose sum lies under the 1e-37 floor; and the row ring that
 stages w through shared memory (fb_step.cuh: RowStager): every row of every
 chunk lands whole and is read back by every lane of the warp, in both walk
@@ -55,22 +55,25 @@ def _source(name):
 # ---- the step's arithmetic ------------------------------------------------
 
 def emulate_scan(w, col, pinit, lp, ulps=0, forward=True, backward=True):
-    """K3's two chains (K5 is the backward one) over [T, B, S] float32
-    weights, all lanes at once: grouped sums, the reciprocal moved by `ulps`
-    (the other way backward) except at the floor and above 1e30, the
-    merged backward normalizer. Returns (ahat, bhat); a chain not asked
-    for is None."""
+    """K3's two chains (K4 is the forward one, K5 the backward one) over
+    [T, B, S] float32 weights, all lanes at once: grouped sums, the
+    reciprocal moved by `ulps` (the other way backward) except at the floor
+    and above 1e30, K4's cfw = max(group sum, 1e-37), the merged backward
+    normalizer. Returns (ahat, bhat, cfw [T, B]); what a chain not asked for
+    gives is None."""
     T, B, S = w.shape
     lp = torch.tensor(lp, dtype=F32)
-    ahat = bhat = None
+    ahat = bhat = cfw = None
     if forward:
         ahat = torch.empty_like(w)
+        cfw = torch.empty((T, B), dtype=F32)
         x = pinit
         for t in range(T):
             a = w[t] * x
             (c_raw,) = _group_sums(a)
             carry = a * _recip(c_raw, True, ulps)
             ahat[t] = carry
+            cfw[t] = torch.clamp(c_raw, min=TINY)[:, 0]
             x = _fma(lp, carry, col)
     if backward:
         bhat = torch.empty_like(w)
@@ -83,7 +86,7 @@ def emulate_scan(w, col, pinit, lp, ulps=0, forward=True, backward=True):
             r = _recip(_fma(lp, su, s_f * cu), True, -ulps)
             carry = _fma(lp, u, cu) * r
             bhat[f - 1] = carry
-    return ahat, bhat
+    return ahat, bhat, cfw
 
 
 def _norm(b):
@@ -122,12 +125,19 @@ def _assert_close(got, ref, valid, name):
     assert err <= bar, f"{name} off by {err:.3g} > {bar}"
 
 
-# S: every (G, P) instance of K3 and K5 with a full and a ragged group
-@pytest.mark.parametrize("S", [1, 2, 3, 4, 5, 8, 9, 16, 31, 33, 64, 100,
-                               128])
+def _assert_cfw_close(got, ref, valid):
+    err = float(((got - ref).abs() / ref)[valid].max())
+    assert err <= CFW_REL_BAR, f"cfw off by {err:.3g} > {CFW_REL_BAR}"
+
+
+# S: every (G, P) instance of K3, K4 and K5 with a full and a ragged group
+GROUP_S = [1, 2, 3, 4, 5, 8, 9, 16, 31, 33, 64, 100, 128]
+
+
+@pytest.mark.parametrize("S", GROUP_S)
 def test_grouped_sums_and_merged_backward_sum(S):
     w, col, pinit, lp, valid = _case(40, 5, S, seed=S)
-    ahat, bhat = emulate_scan(w, col, pinit, lp)
+    ahat, bhat, _ = emulate_scan(w, col, pinit, lp)
     ref_a, _ = fbs.fb_scan_fwd_plain(w, col, pinit, lp)
     ref_b = fbs.fb_scan_bwd_plain(w, col, lp)
     _assert_close(ahat, ref_a, valid, "ahat")
@@ -138,11 +148,25 @@ def test_grouped_sums_and_merged_backward_sum(S):
         assert torch.all(bhat[:-1, 0, -2:] > 0)
 
 
+@pytest.mark.parametrize("S", GROUP_S)
+def test_forward_chain_cfw(S):
+    """K4's c_t, one floored group sum a frame and lane, against the
+    forward twin's cfw, with the reciprocal two ulp off (it does not enter
+    c_t of the same frame, only later frames through ahat)."""
+    w, col, pinit, lp, valid = _case(40, 5, S, seed=100 + S)
+    ahat, _, cfw = emulate_scan(w, col, pinit, lp, ulps=2, backward=False)
+    ref_a, ref_c = fbs.fb_scan_fwd_plain(w, col, pinit, lp)
+    assert cfw.shape == ref_c.shape == w.shape[:2]
+    assert torch.all(cfw >= torch.tensor(TINY, dtype=F32))
+    _assert_cfw_close(cfw, ref_c, valid)
+    _assert_close(ahat, ref_a, valid, "ahat")
+
+
 @pytest.mark.parametrize("ulps", [-2, -1, 1, 2])
 @pytest.mark.parametrize("S", [8, 31])
 def test_reciprocal_off_by_ulps(ulps, S):
     w, col, pinit, lp, valid = _case(300, 4, S, seed=10 + S)
-    ahat, bhat = emulate_scan(w, col, pinit, lp, ulps=ulps)
+    ahat, bhat, _ = emulate_scan(w, col, pinit, lp, ulps=ulps)
     _assert_close(ahat, fbs.fb_scan_fwd_plain(w, col, pinit, lp)[0], valid,
                   "ahat")
     _assert_close(_norm(bhat), _norm(fbs.fb_scan_bwd_plain(w, col, lp)),
@@ -152,18 +176,20 @@ def test_reciprocal_off_by_ulps(ulps, S):
 @pytest.mark.parametrize("S", [3, 8])
 def test_frames_under_the_floor(S):
     """Frames whose sum is under 1e-37 take the IEEE reciprocal of the
-    floor (no ulp moved there), and c_t as fb_scan rebuilds it from ahat is
-    the floor, as the twin records it."""
+    floor (no ulp moved there), and c_t, as K4 stores it and as fb_scan
+    rebuilds it from K3's ahat, is the floor, as the twin records it (the
+    floored sum, never the raw one)."""
     w, col, pinit, lp, valid = _case(60, 3, S, seed=3, floor=True)
     assert float(w[20:22, 0].sum(-1).max()) < TINY
-    ahat, bhat = emulate_scan(w, col, pinit, lp, ulps=2)
+    ahat, bhat, k4_cfw = emulate_scan(w, col, pinit, lp, ulps=2)
     ref_a, ref_c = fbs.fb_scan_fwd_plain(w, col, pinit, lp)
     prev = torch.cat([pinit[None], lp * ahat[:-1] + col[None]], 0)
     cfw = torch.clamp((w * prev).sum(-1), min=TINY)
     tiny = torch.tensor(TINY, dtype=F32)
     assert torch.all(ref_c[20:22, 0] == tiny)
-    assert torch.all(cfw[20:22, 0] == tiny)
-    assert float(((cfw - ref_c).abs() / ref_c)[valid].max()) <= CFW_REL_BAR
+    for got in (cfw, k4_cfw):
+        assert torch.all(got[20:22, 0] == tiny)
+        _assert_cfw_close(got, ref_c, valid)
     _assert_close(ahat, ref_a, valid, "ahat")
     _assert_close(_norm(bhat), _norm(fbs.fb_scan_bwd_plain(w, col, lp)),
                   valid, "bhat")
@@ -174,8 +200,8 @@ def test_frames_under_the_floor(S):
 def test_emulation_matches_fb_scan_pallas(T, S, B, fused):
     """fb_scan with K3 (fused) or K4 and K5 (two-pass) replaced by their
     emulations, against vbx_tpu's fb_scan_pallas run in interpret mode on
-    the same inputs; K4 keeps its twin's arithmetic (its design is
-    unchanged). cfw as fb_scan rebuilds it (fused) or as K4 returns it."""
+    the same inputs. cfw as fb_scan rebuilds it (fused) or as K4 stores
+    it."""
     w, m, col, pinit, valid, _, lp = _problem(T, S, B, seed=T + S,
                                               short_lane=(1, T - T // 5))
     j = [np.asarray(x) for x in fb_scan_pallas(
@@ -185,12 +211,13 @@ def test_emulation_matches_fb_scan_pallas(T, S, B, fused):
     wf = (torch.from_numpy(w) * vm + (1 - vm) / S).contiguous()
     colt, pint = torch.from_numpy(col), torch.from_numpy(pinit)
     if fused:
-        ahat, bhat = emulate_scan(wf, colt, pint, lp, ulps=1)
+        ahat, bhat, _ = emulate_scan(wf, colt, pint, lp, ulps=1)
         prev = torch.cat([pint[None], lp * ahat[:-1] + colt[None]], 0)
         cfw = torch.clamp((wf * prev).sum(-1), min=TINY)
     else:
-        ahat, cfw = fbs.fb_scan_fwd_plain(wf, colt, pint, lp)
-        _, bhat = emulate_scan(wf, colt, pint, lp, ulps=-1, forward=False)
+        ahat, _, cfw = emulate_scan(wf, colt, pint, lp, ulps=1,
+                                    backward=False)
+        _, bhat, _ = emulate_scan(wf, colt, pint, lp, ulps=-1, forward=False)
     ok = valid.astype(bool)
     assert np.abs(ahat.numpy() - j[0])[ok].max() <= AHAT_BAR
     jb = j[1] / j[1].sum(-1, keepdims=True)

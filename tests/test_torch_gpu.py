@@ -280,13 +280,12 @@ def _scan_case(T, B, S, seed, floor=False):
     (200, 5, 8, True), (120, 4, 3, True)])
 def test_fb_scan_cuda_kernels_match_plain_twins(T, B, S, floor):
     """K3, K4 and K5 against their twins on the filled weights fb_scan
-    hands them; each wrapper counts its launch. The shapes cover every
-    group shape of K3 and K5 (S=1 and 3: 32 lanes a warp; 5-8: 16; 9: 8;
-    31: 4; 33-64: 2; 100-128: 1) with batches that do not fill a warp,
-    K4's 1, 2 and 4 speakers per thread and batches that are no multiple of
-    its 4 lanes per block, walks of 1-3 frames, walks one frame under and
-    over one staged chunk (S=31: 16 rows; S=1: 64), and frames whose sum
-    lies under the 1e-37 floor."""
+    hands them; each wrapper counts its launch, and K4's ahat is K3's bit
+    for bit (the same forward body). The shapes cover every group shape of
+    the three kernels (S=1 and 3: 32 lanes a warp; 5-8: 16; 9: 8; 31: 4;
+    33-64: 2; 100-128: 1) with batches that do not fill a warp, walks of
+    1-3 frames, walks one frame under and over one staged chunk (S=31: 16
+    rows; S=1: 64), and frames whose sum lies under the 1e-37 floor."""
     _need_card()
     w, valid, col, pinit = _scan_case(T, B, S, seed=T + S, floor=floor)
     vm = valid[:, :, None]
@@ -306,6 +305,7 @@ def test_fb_scan_cuda_kernels_match_plain_twins(T, B, S, floor):
     ap, cp = fbs.fb_scan_fwd_plain(wf, col, pinit, 0.9)
     bp = fbs.fb_scan_bwd_plain(wf, col, 0.9)
     torch.cuda.synchronize()
+    assert torch.equal(a3, a4)
     for a in (a3, a4):
         torch.testing.assert_close(a[ok], ap[ok], atol=2e-5, rtol=0)
     for b in (b3, b5):
@@ -322,10 +322,10 @@ def test_fb_scan_cuda_kernels_match_plain_twins(T, B, S, floor):
 @pytest.mark.gpu
 @pytest.mark.parametrize("S", [1, 9, 31, 33, 128])
 def test_fb_scan_lanes_do_not_depend_on_their_batch(S):
-    """K3 and K5: a lane of a batch of 70 is bit-equal to the same lane
-    launched alone and at another place among other neighbours (the group
-    that holds a lane depends on S only, and a warp's lanes never exchange
-    values)."""
+    """K3, K4 and K5: a lane of a batch of 70 (ahat, bhat and K4's cfw) is
+    bit-equal to the same lane launched alone and at another place among
+    other neighbours (the group that holds a lane depends on S only, and a
+    warp's lanes never exchange values)."""
     _need_card()
     T, B = 97, 70
     w, valid, col, pinit = _scan_case(T, B, S, seed=S)
@@ -334,8 +334,9 @@ def test_fb_scan_lanes_do_not_depend_on_their_batch(S):
 
     def run(idx):
         args = (wf[:, idx].contiguous(), col[idx].contiguous())
-        return (*fbs.fb_scan_fused(*args, pinit[idx].contiguous(), 0.9),
-                fbs.fb_scan_bwd(*args, 0.9))
+        p = pinit[idx].contiguous()
+        return (*fbs.fb_scan_fused(*args, p, 0.9),
+                *fbs.fb_scan_fwd(*args, p, 0.9), fbs.fb_scan_bwd(*args, 0.9))
 
     full = run(slice(None))
     for i in (0, 1, 33, B - 1):

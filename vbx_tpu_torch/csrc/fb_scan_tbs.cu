@@ -34,9 +34,10 @@
 // dependent steps per lane, every lane's chain runs at once, and so its time
 // is T x the latency of one step, far above that bound.
 //
-// K3 and K5 (fb_scan_fused_kernel, fb_scan_bwd_kernel) are built like K1's
-// narrow form (fb_fused_sb.cu, fb_step.cuh), which does the same walks in
-// the [B, T, S] layout:
+// K3, K4 and K5 (fb_scan_fused_kernel, fb_scan_fwd_kernel,
+// fb_scan_bwd_kernel) are built like K1's narrow form (fb_fused_sb.cu,
+// fb_step.cuh), which does the same walks in the [B, T, S] layout, and K4
+// is K3's forward chain with one more store:
 //
 // - A lane's S speakers are held by a group of G threads, P speakers each
 //   (fb_step.cuh: pick_group, from S alone, so a lane's result does not
@@ -44,7 +45,7 @@
 //   b0 + 32/G - 1, whose frame t is one row of (32/G) * S contiguous floats
 //   at (t * B + b0) * S. Lanes past the batch's end repeat its last lane
 //   and store nothing. Blocks are one warp; in K3 blockIdx.y 0 runs the
-//   forward chains and 1 the backward chains.
+//   forward chains and 1 the backward chains, K4 runs forward chains only.
 // - w reaches the step through a ring of kStages chunks of rows in shared
 //   memory, one bulk copy a row, counted by the buffer's mbarrier
 //   (fb_step.cuh: RowStager). The rows of a chunk land one fixed stride
@@ -60,21 +61,20 @@
 // - The normalizing reciprocal is the hardware approximation, the IEEE
 //   division only for sums at the floor and above 1e30
 //   (fb_step.cuh: norm_recip).
+// - K4's c_t is the floored sum max(sum_s a_t, 1e-37), stored by the first
+//   thread of each group whose lane belongs to the batch, through a pointer
+//   that moves B floats a frame: a predicated store, no branch. A warp's
+//   lanes are consecutive, so its stores of one frame are one contiguous
+//   run of 32 / G floats. K3 and K4 run the same forward body, so their
+//   ahat agree bit for bit.
 //
 // On an H100 at 1980 MHz (T=1025, B=256, S=31) K3 and K5 take ~320 cycles a
-// step where K1 takes 261; the difference is the issue of the rows' bulk
-// copies, ~50 cycles a row (one thread issuing a chunk's rows, or one
-// mbarrier arrival a chunk in place of one a row, is no better).
-//
-// K4 (fb_scan_fwd_kernel) keeps the first design of this file: one warp per
-// chain, 4 lanes a block, a thread holds speakers lane, lane + 32, ... (at
-// most 4: S <= 128, the API's cap), the per-frame sum a 32-wide
-// shuffle butterfly, kAhead frames of w in flight as per-thread 4-byte
-// cp.async copies into a shared-memory ring (each thread reads back only
-// the slots it copied), and the IEEE division; on an H100 at 1980 MHz it
-// takes ~565 cycles a step, ~240 of them the division, where K3 and K5
-// take ~320 (scripts/torch_fb_scan_tuning.py times the three kernels and
-// their variants).
+// step and K4 ~330 (its cfw store ~20) where K1 takes 261; the difference
+// is issuing the rows' bulk copies, ~50 cycles a row (one thread issuing
+// a chunk's rows, or one mbarrier arrival a chunk in place of one a row,
+// is no better).
+// scripts/torch_fb_scan_tuning.py times the three kernels and their
+// variants.
 
 #include "fb_step.cuh"
 
@@ -82,131 +82,7 @@
 
 namespace {
 
-constexpr int kLanesPerBlock = 4;  // recording lanes (warps per chain kind)
-constexpr int kAhead = 4;          // frames of w in flight per chain
-constexpr int kMaxSpeakers = 128;  // 4 speakers per thread
-constexpr float kTiny = 1e-37f;    // just above the float32 normal range
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Asynchronous 4-byte copy from device memory into shared memory. It does
-// not occupy a register while in flight, and it completes by groups: a
-// thread commits a group per frame and waits until at most N groups pend.
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst), "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// Starts the copy of this thread's speakers of one frame of w into its own
-// slots of a staging frame (32 * KPT floats), as one group. A thread only
-// ever reads back the slots it copied itself, so its own wait is all the
-// synchronization a staging frame needs.
-template <int KPT>
-__device__ __forceinline__ void stage_frame(const float* __restrict__ frame,
-                                            int lane, int S, float* slot) {
-#pragma unroll
-  for (int k = 0; k < KPT; ++k) {
-    const int s = lane + 32 * k;
-    if (s < S) cp_async4(slot + s, frame + s);
-  }
-  cp_async_commit();
-}
-
-// Reads this thread's speakers of a staged frame; absent speakers read as 0.
-template <int KPT>
-__device__ __forceinline__ void read_staged(const float* slot, int lane,
-                                            int S, float (&out)[KPT]) {
-#pragma unroll
-  for (int k = 0; k < KPT; ++k) {
-    const int s = lane + 32 * k;
-    out[k] = s < S ? slot[s] : 0.f;
-  }
-}
-
-// Loads this thread's speakers of one frame; absent speakers read as 0.
-template <int KPT>
-__device__ __forceinline__ void load_frame(const float* __restrict__ frame,
-                                           int lane, int S,
-                                           float (&out)[KPT]) {
-#pragma unroll
-  for (int k = 0; k < KPT; ++k) {
-    const int s = lane + 32 * k;
-    out[k] = s < S ? frame[s] : 0.f;
-  }
-}
-
-template <int KPT>
-__device__ __forceinline__ void store_frame(float* __restrict__ frame,
-                                            int lane, int S,
-                                            const float (&v)[KPT]) {
-#pragma unroll
-  for (int k = 0; k < KPT; ++k) {
-    const int s = lane + 32 * k;
-    if (s < S) frame[s] = v[k];
-  }
-}
-
-// Forward chain of lane b: frames 0 .. T-1. WITH_C also writes c_t.
-template <int KPT, bool WITH_C>
-__device__ __forceinline__ void forward_chain(
-    const float* __restrict__ w, const float* __restrict__ col,
-    const float* __restrict__ pinit, float lp, int T, int B, int S, int b,
-    int lane, float* stage, float* __restrict__ ahat,
-    float* __restrict__ cfw) {
-  const size_t step = static_cast<size_t>(B) * S;  // floats between frames
-  const float* wl = w + static_cast<size_t>(b) * S;
-  float* al = ahat + static_cast<size_t>(b) * S;
-  float colr[KPT], pin[KPT], carry[KPT];
-  load_frame<KPT>(col + static_cast<size_t>(b) * S, lane, S, colr);
-  load_frame<KPT>(pinit + static_cast<size_t>(b) * S, lane, S, pin);
-  // one group per staging frame, empty past the end, so that "at most
-  // kAhead - 1 groups pending" always means "this step's frame has landed"
-#pragma unroll
-  for (int i = 0; i < kAhead; ++i)
-    stage_frame<KPT>(wl + i * step, lane, i < T ? S : 0,
-                     stage + i * 32 * KPT);
-#pragma unroll
-  for (int k = 0; k < KPT; ++k) carry[k] = 0.f;
-  for (int t0 = 0; t0 < T; t0 += kAhead) {
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const int t = t0 + i;
-      if (t < T) {
-        float* slot = stage + i * 32 * KPT;
-        float wt[KPT], a[KPT];
-        float part = 0.f;
-        cp_async_wait<kAhead - 1>();
-        read_staged<KPT>(slot, lane, S, wt);
-#pragma unroll
-        for (int k = 0; k < KPT; ++k) {
-          a[k] = t == 0 ? wt[k] * pin[k] : wt[k] * (lp * carry[k] + colr[k]);
-          part += a[k];
-        }
-        stage_frame<KPT>(wl + (t + kAhead) * step, lane,
-                         t + kAhead < T ? S : 0, slot);
-        const float c = fmaxf(warp_sum(part), kTiny);
-#pragma unroll
-        for (int k = 0; k < KPT; ++k) carry[k] = a[k] / c;
-        store_frame<KPT>(al + t * step, lane, S, carry);
-        if (WITH_C && lane == 0) cfw[static_cast<size_t>(t) * B + b] = c;
-      }
-    }
-  }
-}
-
-// ---- K3 and K5: grouped lanes over staged rows ----------------------------
+constexpr int kMaxSpeakers = 128;  // the [T, B, S] API's cap
 
 namespace rows {
 
@@ -239,16 +115,21 @@ __device__ __forceinline__ Lane setup(RowStager<float>& st,
 }
 
 // Forward chain of lane l.b: frames 0 .. T-1. x is the prior of the frame
-// to come, lp * ahat_{t-1} + col, and pinit before frame 0.
-template <int G, int P>
+// to come, lp * ahat_{t-1} + col, and pinit before frame 0. WITH_C (K4)
+// also stores c_t = max(sum_s a_t, 1e-37) to cfw[t * B + l.b]; without it
+// cfw is not read.
+template <int G, int P, bool WITH_C>
 __device__ __forceinline__ void forward_rows(RowStager<float>& st,
                                              const float* __restrict__ col,
                                              const float* __restrict__ pinit,
                                              float lp, int B, int S,
                                              const Lane& l,
-                                             float* __restrict__ ahat) {
+                                             float* __restrict__ ahat,
+                                             float* __restrict__ cfw) {
   const size_t step = static_cast<size_t>(B) * S;  // floats between frames
   const int cs = st.stride / 4;                    // floats between rows
+  // one thread a lane of the batch stores its c_t
+  const bool c_store = WITH_C && l.g == 0 && l.s_store != 0;
   float colr[P], x[P], wcur[P], wnxt[P];
   read_frame<float, G, P>(col + static_cast<size_t>(l.b) * S, l.g, S, colr);
   read_frame<float, G, P>(pinit + static_cast<size_t>(l.b) * S, l.g, S, x);
@@ -259,6 +140,7 @@ __device__ __forceinline__ void forward_rows(RowStager<float>& st,
     const float* wp = st.chunk_data(q) + l.rd;
     float* ap = ahat + static_cast<size_t>(t0) * step +
                 static_cast<size_t>(l.b) * S;
+    float* cp = WITH_C ? cfw + static_cast<size_t>(t0) * B + l.b : nullptr;
     read_frame<float, G, P>(wp, l.g, S, wcur);
 #pragma unroll 4
     for (int t = t0; t < t1; ++t) {
@@ -267,16 +149,19 @@ __device__ __forceinline__ void forward_rows(RowStager<float>& st,
       float a[P], carry[P];
 #pragma unroll
       for (int k = 0; k < P; ++k) a[k] = wcur[k] * x[k];
-      const float r = norm_recip(group_sum<G>(tree_sum<P>(a)), true);
+      const float c_raw = group_sum<G>(tree_sum<P>(a));
+      const float r = norm_recip(c_raw, true);
 #pragma unroll
       for (int k = 0; k < P; ++k) carry[k] = a[k] * r;
       write_frame<float, G, P>(ap, l.g, l.s_store, carry);
+      if (c_store) *cp = fmaxf(c_raw, kTiny);
 #pragma unroll
       for (int k = 0; k < P; ++k) {
         x[k] = fmaf(lp, carry[k], colr[k]);
         wcur[k] = wnxt[k];
       }
       ap += step;
+      if (WITH_C) cp += B;
     }
   }
 }
@@ -348,9 +233,23 @@ __global__ void __launch_bounds__(32)
   const Lane l =
       setup<G>(st, w, T, B, S, log_f, stride, buf_bytes, forward, smem);
   if (forward)
-    forward_rows<G, P>(st, col, pinit, lp, B, S, l, ahat);
+    forward_rows<G, P, false>(st, col, pinit, lp, B, S, l, ahat, nullptr);
   else
     backward_rows<G, P>(st, col, lp, T, B, S, l, bhat);
+}
+
+template <int G, int P>
+__global__ void __launch_bounds__(32)
+    fb_scan_fwd_kernel(const float* __restrict__ w,
+                       const float* __restrict__ col,
+                       const float* __restrict__ pinit, float lp, int T,
+                       int B, int S, int log_f, int stride, int buf_bytes,
+                       float* __restrict__ ahat, float* __restrict__ cfw) {
+  extern __shared__ __align__(16) char smem[];
+  RowStager<float> st;
+  const Lane l = setup<G>(st, w, T, B, S, log_f, stride, buf_bytes, true,
+                          smem);
+  forward_rows<G, P, true>(st, col, pinit, lp, B, S, l, ahat, cfw);
 }
 
 template <int G, int P>
@@ -366,12 +265,13 @@ __global__ void __launch_bounds__(32)
   backward_rows<G, P>(st, col, lp, T, B, S, l, bhat);
 }
 
-// K3 (ahat given) or K5 (ahat null) for one group shape: the ring's
-// geometry from the row of a warp's lanes, one-warp blocks, and in K3 a
-// second row of blocks for the backward chains.
+// K4 (cfw given), K3 (ahat and bhat given) or K5 (ahat null) for one
+// group shape: the ring's geometry from the row of a warp's lanes,
+// one-warp blocks, and in K3 a second row of blocks for the backward
+// chains.
 template <int G, int P>
 int launch(const float* w, const float* col, const float* pinit, float lp,
-           int T, int B, int S, float* ahat, float* bhat,
+           int T, int B, int S, float* ahat, float* bhat, float* cfw,
            cudaStream_t stream) {
   constexpr int kLanes = 32 / G;
   const int row_bytes = kLanes * S * static_cast<int>(sizeof(float));
@@ -383,7 +283,10 @@ int launch(const float* w, const float* col, const float* pinit, float lp,
   // this stays under 35 KB, inside the default 48 KB of a block
   const int smem = kStages * (buf + 8);
   const int n_blocks = (B + kLanes - 1) / kLanes;
-  if (ahat != nullptr)
+  if (cfw != nullptr)
+    fb_scan_fwd_kernel<G, P><<<n_blocks, 32, smem, stream>>>(
+        w, col, pinit, lp, T, B, S, log_f, stride, buf, ahat, cfw);
+  else if (ahat != nullptr)
     fb_scan_fused_kernel<G, P><<<dim3(n_blocks, 2), 32, smem, stream>>>(
         w, col, pinit, lp, T, B, S, log_f, stride, buf, ahat, bhat);
   else
@@ -394,12 +297,13 @@ int launch(const float* w, const float* col, const float* pinit, float lp,
 
 int launch_any(const float* w, const float* col, const float* pinit,
                float lp, int T, int B, int S, float* ahat, float* bhat,
-               cudaStream_t stream) {
+               float* cfw, cudaStream_t stream) {
   int G, P;
   pick_group(S, &G, &P);
 #define FB_SCAN_GROUP(GG, PP)                                           \
   if (G == GG && P == PP)                                               \
-    return launch<GG, PP>(w, col, pinit, lp, T, B, S, ahat, bhat, stream);
+    return launch<GG, PP>(w, col, pinit, lp, T, B, S, ahat, bhat, cfw,  \
+                          stream);
   FB_SCAN_GROUP(1, 4)
   FB_SCAN_GROUP(2, 4)
   FB_SCAN_GROUP(4, 4)
@@ -412,33 +316,15 @@ int launch_any(const float* w, const float* col, const float* pinit,
 
 }  // namespace rows
 
-template <int KPT>
-__global__ void __launch_bounds__(32 * kLanesPerBlock)
-    fb_scan_fwd_kernel(const float* __restrict__ w,
-                       const float* __restrict__ col,
-                       const float* __restrict__ pinit, float lp, int T, int B,
-                       int S, float* __restrict__ ahat,
-                       float* __restrict__ cfw) {
-  __shared__ float stage[kLanesPerBlock][kAhead * 32 * KPT];
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kLanesPerBlock + warp;
-  if (b >= B) return;
-  forward_chain<KPT, true>(w, col, pinit, lp, T, B, S, b, threadIdx.x & 31,
-                           stage[warp], ahat, cfw);
-}
-
 bool bad_shape(int T, int B, int S) {
   return T < 1 || B < 1 || S < 1 || S > kMaxSpeakers;
 }
-
-int blocks(int B) { return (B + kLanesPerBlock - 1) / kLanesPerBlock; }
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on `stream`, does
 // not synchronize, allocates nothing, and returns cudaGetLastError() after
-// the launch (0 = cudaSuccess). K3 and K5 pick their group shape from S; K4
-// holds 1, 2 or 4 speakers per thread by S.
+// the launch (0 = cudaSuccess). Each picks its group shape from S.
 
 extern "C" int fb_scan_fused_launch(const void* w, const void* col,
                                     const void* pinit, float lp, int T, int B,
@@ -448,30 +334,17 @@ extern "C" int fb_scan_fused_launch(const void* w, const void* col,
   return rows::launch_any(
       static_cast<const float*>(w), static_cast<const float*>(col),
       static_cast<const float*>(pinit), lp, T, B, S, static_cast<float*>(ahat),
-      static_cast<float*>(bhat), static_cast<cudaStream_t>(stream));
+      static_cast<float*>(bhat), nullptr, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fb_scan_fwd_launch(const void* w, const void* col,
                                   const void* pinit, float lp, int T, int B,
                                   int S, void* ahat, void* cfw, void* stream) {
   if (bad_shape(T, B, S)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* wp = static_cast<const float*>(w);
-  const auto* cp = static_cast<const float*>(col);
-  const auto* pp = static_cast<const float*>(pinit);
-  auto* ap = static_cast<float*>(ahat);
-  auto* cf = static_cast<float*>(cfw);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 32 * kLanesPerBlock;
-  if (S <= 32)
-    fb_scan_fwd_kernel<1><<<blocks(B), threads, 0, st>>>(wp, cp, pp, lp, T, B,
-                                                         S, ap, cf);
-  else if (S <= 64)
-    fb_scan_fwd_kernel<2><<<blocks(B), threads, 0, st>>>(wp, cp, pp, lp, T, B,
-                                                         S, ap, cf);
-  else
-    fb_scan_fwd_kernel<4><<<blocks(B), threads, 0, st>>>(wp, cp, pp, lp, T, B,
-                                                         S, ap, cf);
-  return static_cast<int>(cudaGetLastError());
+  return rows::launch_any(
+      static_cast<const float*>(w), static_cast<const float*>(col),
+      static_cast<const float*>(pinit), lp, T, B, S, static_cast<float*>(ahat),
+      nullptr, static_cast<float*>(cfw), static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fb_scan_bwd_launch(const void* w, const void* col, float lp,
@@ -480,6 +353,6 @@ extern "C" int fb_scan_bwd_launch(const void* w, const void* col, float lp,
   if (bad_shape(T, B, S)) return static_cast<int>(cudaErrorInvalidValue);
   return rows::launch_any(static_cast<const float*>(w),
                           static_cast<const float*>(col), nullptr, lp, T, B,
-                          S, nullptr, static_cast<float*>(bhat),
+                          S, nullptr, static_cast<float*>(bhat), nullptr,
                           static_cast<cudaStream_t>(stream));
 }

@@ -7,3 +7,9 @@ directly."""
 
 from vbx_tpu_torch.engine.vbhmm import (  # noqa: F401
     VBxResult, vbx, vbx_batched, vbx_batched_checkpointed)
+from vbx_tpu_torch.engine.ahc import (  # noqa: F401
+    ahc_labels, random_labels, smooth_labels_to_gamma,
+)
+from vbx_tpu_torch.engine.pipeline import (  # noqa: F401
+    DiarizationOutput, diarize_ark, diarize_xvectors,
+)

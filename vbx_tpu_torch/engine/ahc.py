@@ -21,6 +21,7 @@ the device walk gives the same labels as the host chain.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -57,7 +58,8 @@ def ahc_labels(
     Kaldi-equivalent dense PLDA scoring (diarization_lib.py:59-93).
     `compute_backend` is validated like vbx_tpu's ('auto', 'host',
     'device'); every value runs the float64 host chain here (see the
-    module docstring). `linkage_backend` forces 'native' or 'scipy'.
+    module docstring), and 'device' with PLDA scoring warns, as vbx_tpu's
+    does. `linkage_backend` forces 'native' or 'scipy'.
     """
     if compute_backend not in ("auto", "host", "device"):
         raise ValueError(
@@ -87,6 +89,12 @@ def ahc_labels(
     elif similarity == "plda":
         if plda is None:
             raise ValueError("similarity='plda' requires a plda model")
+        if compute_backend == "device":
+            # the dense PLDA scorer has no device path: say so
+            warnings.warn(
+                "compute_backend='device' has no effect with "
+                "similarity='plda'; scoring runs on host in f64",
+                stacklevel=2)
         scr_mx = kaldi_plda_scoring_dense(
             plda, np.asarray(x), target_energy=target_energy, pca_dim=pca_dim)
     else:

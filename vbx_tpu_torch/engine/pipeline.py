@@ -39,7 +39,6 @@ from vbx_tpu_torch.io.plda import read_plda, rediagonalize_plda
 from vbx_tpu_torch.io.rttm import merge_adjacent_labels, write_rttm
 from vbx_tpu_torch.io.segments import read_xvector_timing_dict
 from vbx_tpu_torch.io.transform import read_xvec_transform
-from vbx_tpu_torch.parallel.engine import vbx_sharded
 from vbx_tpu_torch.parallel.mesh import Mesh
 from vbx_tpu_torch.utils.bucketing import T_QUANTUM
 
@@ -271,6 +270,15 @@ class Diarizer:
             elbo=elbo, gamma=gamma_out)
 
 
+def diarize_xvectors(x_raw: np.ndarray, config: DiarizationConfig,
+                     plda, transform, device: DeviceLike = None,
+                     **kw) -> DiarizationOutput:
+    """One recording's raw x-vectors -> labels, through a Diarizer built for
+    this call (`device` as Diarizer's; `kw` as its diarize_xvectors)."""
+    return Diarizer(config, plda, transform,
+                    device=device).diarize_xvectors(x_raw, **kw)
+
+
 def diarize_ark(
     ark_file: str,
     segments_file: str,
@@ -468,6 +476,9 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     from concurrent.futures import ThreadPoolExecutor, as_completed
 
     from vbx_tpu_torch.clustering import set_native_threads
+    # imported here: parallel.engine imports the engine package, which
+    # imports this module
+    from vbx_tpu_torch.parallel.engine import vbx_sharded
     from vbx_tpu_torch.utils.bucketing import bucket_shape, chunk_cap
 
     cfg = diar.config

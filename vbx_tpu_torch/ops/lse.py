@@ -27,3 +27,9 @@ def logsumexp(x: torch.Tensor, dim: int = -1,
     m_safe = torch.clamp(x.amax(dim, keepdim=True), min=NEG_INF)
     out = m_safe + torch.log(torch.exp(x - m_safe).sum(dim, keepdim=True))
     return out if keepdim else out.squeeze(dim)
+
+
+def masked_logsumexp(x: torch.Tensor, mask: torch.Tensor, dim: int = -1,
+                     keepdim: bool = False) -> torch.Tensor:
+    """logsumexp over entries where mask is True."""
+    return logsumexp(masked_fill(x, mask), dim=dim, keepdim=keepdim)

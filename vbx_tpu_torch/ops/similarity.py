@@ -1,10 +1,11 @@
-"""PLDA similarity for AHC initialization (port of the host routes of
+"""Pairwise similarities for AHC initialization (port of
 vbx_tpu.ops.similarity).
 
-Cosine scores need no function of their own here: the AHC host chain takes
-xn @ xn.T of the length-normalized float64 x-vectors directly
-(engine.ahc). PLDA log-likelihood-ratio scoring (diarization_lib.py:34-56)
-is one rank-D product plus rank-1 row/column corrections.
+The N x N cosine matrix is one matmul of the length-normalized vectors
+(cos_similarity; the AHC host chain takes the same product of float64
+x-vectors directly, engine.ahc). PLDA log-likelihood-ratio scoring
+(diarization_lib.py:34-56) is one rank-D product plus rank-1 row/column
+corrections.
 """
 
 from __future__ import annotations
@@ -13,6 +14,21 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 0.0,
+                 dim: int = -1) -> torch.Tensor:
+    """Row-wise L2 normalization (reference: diarization_lib.l2_norm:172-187,
+    eps=0; cos_similarity uses eps=1e-32 at :201)."""
+    norm = torch.sqrt((x * x).sum(dim, keepdim=True))
+    return x / (norm + eps)
+
+
+def cos_similarity(x: torch.Tensor) -> torch.Tensor:
+    """N x N cosine similarity at x's dtype on x's device (semantics of
+    diarization_lib.cos_similarity:190-213, without its chunking)."""
+    xn = l2_normalize(x, eps=1e-32)
+    return torch.matmul(xn, xn.T)
 
 
 def plda_scoring_in_lda_space(Fe: torch.Tensor, Ft: torch.Tensor,
