@@ -77,9 +77,35 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    the unsliced vbx_batched run, the file gone at the end;
    forward_backward_assoc against forward_backward_structured at T=1025,
    S=31 on the card (float64 within 1e-9; float32 within ASSOC_F32_BAR);
-7. one JSON line listing every ported kernel with its numbers, the total
+7. extraction path at full width: 4 synthetic recordings of 5 minutes at
+   16 kHz (vbx_tpu_torch.testing.synth_audio: harmonic voices over noise,
+   VAD segments of 0.6-8 s, then one shorter than an analysis window and
+   one that gives only a tail window) through engine.extractor's
+   extract_to_ark on cuda at batch 128, with ResNet101 (32 base channels,
+   [3, 4, 23, 3], 64 x 144 windows, 256-d; seeded default init, embedding
+   bias zero) in float32 (TF32 off) and in bfloat16, cold and warm; and on
+   the CPU with a narrow ResNet (keys and times do not depend on the
+   model). Each run must write one x-vector per window, with the CPU
+   run's keys and segments file. Checks: features of one recording, card
+   vs CPU, within FEATURE_F32_BAR; 16 windows (14 full, tails of 10 and
+   77 frames) of the float32 model on the card against the same model on
+   the CPU on the same windows: cosine >= EXTRACT_F32_COS, max abs error
+   <= EXTRACT_F32_ERR x max, and the float32 ark's x-vectors of the 14
+   full windows (extract_to_ark's own unmasked batches) against the same
+   CPU rows at those bars; the two tails padded against their
+   true-length runs on the card, within EXTRACT_F32_ERR x max; bfloat16
+   against float32, every x-vector's cosine > EXTRACT_BF16_COS. Timing
+   (CUDA events, median after a warm-up): ms per 128-window batch,
+   windows/s, audio seconds/s and TFLOP/s, float32 and bfloat16, beside
+   the bound (FLOPs from the layer shapes over 67 or 989 TFLOP/s), and
+   fbank + CMVN of one recording beside its bound (and once with its
+   cuFFT plans made anew, as a new recording makes them). Then the float32 ark +
+   segments go through diarize_ark on cuda (kernel route, K1's launches
+   counted) with a synthetic 256-d PLDA and transform: an RTTM for every
+   recording (random weights: no DER is claimed);
+8. one JSON line listing every ported kernel with its numbers, the total
    seconds;
-8. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+9. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Without a card, or outside a checkout, it exits non-zero before printing
 any result.
@@ -123,6 +149,19 @@ MESH_LENGTHS = (32768, 30000, 24000, 17000)
 MESH_SPEAKERS = 8
 # mesh vs solo label agreement bars
 MESH_AGREE = {"pallas": 0.995, "pallas_bf16": 0.99}
+# extraction path (phase 7): 4 synthetic recordings of 5 minutes at 16 kHz
+EXTRACT_SECONDS = (300.0, 300.0, 300.0, 300.0)
+EXTRACT_FS = 16000
+EXTRACT_BATCH = 128
+BF16_OPS_PER_S = 989e12        # H100 SXM bfloat16 dense, tensor cores
+# card vs CPU, float32 model on the same 16 windows: cosine, max abs error
+# x max (tests/test_resnet.py's bar); bfloat16 vs float32 cosine
+# (tests/test_extractor.py's bar); features card vs CPU
+# (tests/test_torch_features.py's float32 fbank bar, log domain)
+EXTRACT_F32_COS = 0.99999
+EXTRACT_F32_ERR = 2e-4
+EXTRACT_BF16_COS = 0.999
+FEATURE_F32_BAR = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -1094,6 +1133,269 @@ def assoc_check() -> dict:
     return out
 
 
+def resnet_flops(feat_dim: int, frames: int) -> int:
+    """Multiply-adds x 2 of resnet101's convolutions and embedding for one
+    [feat_dim, frames] window, from its layer shapes (meta device: no
+    weights, no work)."""
+    import torch
+
+    from vbx_tpu_torch.models.resnet import resnet101
+
+    with torch.device("meta"):
+        model = resnet101(feat_dim)
+    total = [0]
+
+    def count(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            total[0] += (2 * out.numel() * mod.in_channels // mod.groups
+                         * mod.kernel_size[0] * mod.kernel_size[1])
+        else:
+            total[0] += 2 * out.numel() * mod.in_features
+
+    for mod in model.modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Linear)):
+            mod.register_forward_hook(count)
+    with torch.no_grad():
+        model(torch.zeros(1, feat_dim, frames, device="meta"))
+    return total[0]
+
+
+def fbank_cost(n_samples: int, frames: int, fs: int) -> dict:
+    """Operations and bytes of fbank + CMVN over a recording's frames:
+    per frame ~2.5 n log2 n for the real FFT of n = nfft points, the mel
+    product (2 x bins x 64), ~10 per sample of framing, mean, pre-emphasis,
+    window and power, and ~8 per feature of log and CMVN; bytes: the
+    float32 signal read once and the features written once."""
+    from vbx_tpu_torch.models.features import fbank_config, htk_nfft
+
+    _, mx, winlen, _ = fbank_config(fs)
+    nfft = htk_nfft(winlen)
+    per_frame = (2.5 * nfft * (nfft.bit_length() - 1) + 2 * mx.size
+                 + 10 * winlen + 8 * mx.shape[1])
+    return {"ops": frames * per_frame,
+            "bytes": 4 * n_samples + 4 * frames * mx.shape[1]}
+
+
+def _cos(a, b):
+    import numpy as np
+
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+def extraction_path(work: str) -> dict:
+    """Phase 7: wav + VAD -> fbank/CMVN -> ResNet101 -> ark + segments on
+    the card (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.device import full_fp32_matmuls
+    from vbx_tpu_torch.engine.extractor import (XVectorExtractor,
+                                                extract_to_ark)
+    from vbx_tpu_torch.engine.pipeline import diarize_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark
+    from vbx_tpu_torch.io.vad import read_lab
+    from vbx_tpu_torch.io.wav import read_wav
+    from vbx_tpu_torch.models.resnet import (BasicBlock, ResNetXVector,
+                                             resnet101)
+    from vbx_tpu_torch.ops import fb_kernel
+    from vbx_tpu_torch.testing import (synth_models, write_audio_corpus,
+                                       write_plda, write_transform)
+
+    t_phase = time.perf_counter()
+    fs = EXTRACT_FS
+    audio = os.path.join(work, "audio")
+    names, wavs, labs = write_audio_corpus(audio, 13, EXTRACT_SECONDS, fs)
+    out = {"write_s": time.perf_counter() - t_phase}
+
+    # ResNet101 at full width and depth, seeded default init; the
+    # embedding bias is zeroed so that the x-vectors carry the pooled
+    # statistics rather than a shared offset
+    torch.manual_seed(0)
+    f32 = resnet101(64, 256)
+    torch.nn.init.zeros_(f32.embedding.bias)
+    bf16 = resnet101(64, 256, dtype=torch.bfloat16)
+    bf16.load_state_dict(f32.state_dict())
+    cpu_model = ResNetXVector(BasicBlock, (1, 1, 1, 1), m_channels=2,
+                              feat_dim=64, embed_dim=256)
+    f32_cpu = resnet101(64, 256)
+    f32_cpu.load_state_dict(f32.state_dict())
+    ex = {"f32": XVectorExtractor(f32, fs, batch_size=EXTRACT_BATCH,
+                                  device="cuda"),
+          "bf16": XVectorExtractor(bf16, fs, batch_size=EXTRACT_BATCH,
+                                   device="cuda"),
+          "cpu": XVectorExtractor(cpu_model, fs, batch_size=EXTRACT_BATCH,
+                                  device="cpu")}
+
+    # windows each recording must give: the CPU's features and windowing
+    signals = [read_wav(w)[0] for w in wavs]
+    vads = [read_lab(lab) for lab in labs]
+    with torch.inference_mode():
+        want = {n: len(ex["cpu"].windows(ex["cpu"].features(s, v), n)[2])
+                for n, s, v in zip(names, signals, vads)}
+    total_windows = sum(want.values())
+    audio_s = float(sum(EXTRACT_SECONDS))
+
+    runs = {}
+    for tag in ("f32", "bf16", "cpu"):
+        for attempt in (("cold", "warm") if tag != "cpu" else ("cold",)):
+            ark = os.path.join(work, f"{tag}.ark")
+            seg = os.path.join(work, f"{tag}.seg")
+            t0 = time.perf_counter()
+            counts = extract_to_ark(wavs, labs, names, ark, seg, ex[tag])
+            if tag != "cpu":
+                torch.cuda.synchronize()
+            runs.setdefault(tag, {})[f"{attempt}_s"] = \
+                time.perf_counter() - t0
+        if counts != want:
+            fail(f"extraction [{tag}]: x-vectors per recording {counts}, "
+                 f"windows {want}")
+        runs[tag]["ark"] = read_vec_ark(ark)
+        runs[tag]["segments"] = open(seg).read()
+    for tag in ("f32", "bf16"):
+        if list(runs[tag]["ark"]) != list(runs["cpu"]["ark"]):
+            fail(f"extraction [{tag}]: keys differ from the CPU run's")
+        if runs[tag]["segments"] != runs["cpu"]["segments"]:
+            fail(f"extraction [{tag}]: segments (keys, times) differ from "
+                 f"the CPU run's")
+    a = np.stack(list(runs["f32"]["ark"].values()))
+    b = np.stack(list(runs["bf16"]["ark"].values()))
+    if not (np.isfinite(a).all() and np.isfinite(b).all()):
+        fail("extraction: non-finite x-vectors")
+    bf16_cos = _cos(a, b)
+    if not bf16_cos.min() > EXTRACT_BF16_COS:
+        fail(f"extraction: bfloat16 vs float32 cosine {bf16_cos.min()}")
+    for tag in ("f32", "bf16"):
+        out[tag] = {"cold_s": runs[tag]["cold_s"],
+                    "warm_s": runs[tag]["warm_s"],
+                    "audio_s_per_s": audio_s / runs[tag]["warm_s"]}
+    out["cpu_s"] = runs["cpu"]["cold_s"]
+    out["windows"] = total_windows
+    out["bf16_vs_f32_cos_min"] = float(bf16_cos.min())
+
+    # features, card vs CPU, on recording 0
+    with torch.inference_mode():
+        fc = ex["f32"].features(signals[0], vads[0])
+        fh = ex["cpu"].features(signals[0], vads[0])
+    if fc.segments != fh.segments:
+        fail("features: segment tables differ between card and CPU")
+    feat_err = float((fc.stream.cpu() - fh.stream).abs().max())
+    if not feat_err <= FEATURE_F32_BAR:
+        fail(f"features: card vs CPU max abs error {feat_err}")
+    out["feature_err"] = feat_err
+
+    # 16 windows of recording 0: its first 14 full ones and tails of 10
+    # and 77 frames, the card's float32 model against the same model on
+    # the CPU on the same windows, and the tails padded against their true
+    # length
+    starts, lens0, meta0 = ex["f32"].windows(fc, names[0])
+    full = [i for i, n in enumerate(lens0) if n == 144][:14]
+    if len(full) < 14:
+        fail(f"extraction: recording 0 has {len(full)} full windows")
+    st = torch.tensor([starts[i] for i in full] + starts[20:22],
+                      device="cuda")
+    ln = torch.tensor([144] * 14 + [10, 77], device="cuda")
+    with torch.inference_mode(), full_fp32_matmuls():
+        card = ex["f32"].embed_batch(fc.stream, st, ln).cpu().numpy()
+        ar = torch.arange(144, device="cuda")
+        win = fc.stream[st[:, None] + ar[None, :]].transpose(1, 2)
+        alone = np.stack([f32(win[i:i + 1, :, :int(ln[i])].contiguous())
+                          [0].cpu().numpy() for i in (14, 15)])
+        cpu = f32_cpu((win * (ar < ln[:, None])[:, None, :]).cpu(),
+                      lengths=ln.cpu()).numpy()
+    cos = _cos(card, cpu)
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    if not (cos.min() >= EXTRACT_F32_COS and err <= EXTRACT_F32_ERR):
+        fail(f"float32 card vs CPU on 16 windows: cosine {cos.min()}, "
+             f"max abs error / max {err}")
+    pad_err = float(np.abs(card[14:] - alone).max() / np.abs(alone).max())
+    if not pad_err <= EXTRACT_F32_ERR:
+        fail(f"padded tail windows vs true-length runs: {pad_err}")
+    # the timed path's own output: extract_to_ark's x-vectors of the same
+    # 14 full windows (gathered in its unmasked full batches) against the
+    # CPU's
+    ark14 = np.stack([runs["f32"]["ark"][meta0[i][0]] for i in full])
+    ark_cos = _cos(ark14, cpu[:14])
+    ark_err = float(np.abs(ark14 - cpu[:14]).max() / np.abs(cpu[:14]).max())
+    if not (ark_cos.min() >= EXTRACT_F32_COS and ark_err <= EXTRACT_F32_ERR):
+        fail(f"float32 ark vs CPU on 14 windows: cosine {ark_cos.min()}, "
+             f"max abs error / max {ark_err}")
+    out.update(card_vs_cpu_cos_min=float(cos.min()), card_vs_cpu_err=err,
+               padded_vs_true_err=pad_err,
+               ark_vs_cpu_cos_min=float(ark_cos.min()), ark_vs_cpu_err=ark_err)
+
+    # timing: one batch of 128 full windows of recording 0, and fbank +
+    # CMVN of one recording, median by CUDA events after a warm-up
+    flops = resnet_flops(64, 144) * EXTRACT_BATCH
+    st = torch.tensor([starts[i % len(starts)] for i in
+                       range(EXTRACT_BATCH)], device="cuda")
+    timing = {}
+    for tag, peak in (("f32", F32_OPS_PER_S), ("bf16", BF16_OPS_PER_S)):
+        # a batch of full windows, as extract_file runs one: no mask
+        with torch.inference_mode(), full_fp32_matmuls():
+            ms = _cuda_ms(lambda: ex[tag].embed_batch(fc.stream, st), n=10)
+        timing[tag] = {"ms_per_batch": ms,
+                       "windows_per_s": EXTRACT_BATCH / ms * 1e3,
+                       "audio_s_per_s": EXTRACT_BATCH * 0.24 / ms * 1e3,
+                       "tflop_per_s": flops / ms / 1e9,
+                       "bound_ms": flops / peak * 1e3}
+    frames = sum(n for _, _, n in fc.segments)
+    cost = fbank_cost(len(signals[0]), frames, fs)
+    dithered = ex["f32"].dither(signals[0])
+    with torch.inference_mode():
+        ms = _cuda_ms(lambda: ex["f32"].dithered_features(dithered,
+                                                          vads[0]), n=5)
+        with_dither = _host_ms(lambda: ex["f32"].features(signals[0],
+                                                          vads[0]), n=3)
+
+        def cold_plans():
+            # a recording's segment groups have shapes of their own, so a
+            # new recording makes cuFFT plans: time a call that makes them
+            torch.backends.cuda.cufft_plan_cache.clear()
+            ex["f32"].dithered_features(dithered, vads[0])
+        cold = _host_ms(cold_plans, n=3)
+    timing["fbank_cmvn"] = {
+        "ms_per_recording": ms, "frames": frames,
+        "ms_per_128_windows": ms * EXTRACT_BATCH / want[names[0]],
+        "tflop_per_s": cost["ops"] / ms / 1e9,
+        "with_host_dither_ms": with_dither, "cold_fft_plans_ms": cold,
+        "audio_s_per_s": EXTRACT_SECONDS[0] / ms * 1e3,
+        "windows_per_s": want[names[0]] / ms * 1e3,
+        "bound_ms": max(cost["ops"] / F32_OPS_PER_S,
+                        cost["bytes"] / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": ("operations" if cost["ops"] / F32_OPS_PER_S
+                     > cost["bytes"] / HBM_BYTES_PER_S else "bytes")}
+    out["timing"] = timing
+    out["flop_per_batch"] = flops
+
+    # audio -> RTTM: the float32 ark through diarize_ark on the card
+    (mu, tr, psi), (mean1, lda, mean2) = synth_models(
+        np.random.default_rng(17), n_speakers=120)
+    plda_path = os.path.join(work, "x_plda")
+    transform_path = os.path.join(work, "x_transform.h5")
+    write_plda(plda_path, mu, tr, psi)
+    write_transform(transform_path, mean1, lda, mean2)
+    rttm_dir = os.path.join(work, "x_rttm")
+    fb_kernel.fb_fused_sb.launches = 0
+    t0 = time.perf_counter()
+    res = diarize_ark(os.path.join(work, "f32.ark"),
+                      os.path.join(work, "f32.seg"), rttm_dir,
+                      get_preset("example"), plda_path, transform_path,
+                      verbose=False, fb_impl="pallas", device="cuda")
+    torch.cuda.synchronize()
+    written = sorted(os.listdir(rttm_dir))
+    if written != sorted(f"{n}.rttm" for n in names) or len(res) != len(names):
+        fail(f"audio -> RTTM: wrote {written} for {names}")
+    if fb_kernel.fb_fused_sb.launches < 1:
+        fail("audio -> RTTM: the kernel route launched fb_fused_sb 0 times")
+    out["rttm"] = {"s": time.perf_counter() - t0,
+                   "k1_launches": fb_kernel.fb_fused_sb.launches,
+                   "speakers": [int(res[n].n_speakers) for n in names]}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def diagnostics_path(work: str) -> dict:
     """The kernel A/B and diagnostics path at full width (module
     docstring, phase 6)."""
@@ -1462,6 +1764,49 @@ def main() -> int:
     print(f"forward_backward_assoc vs structured at T,S={a['shape']}: "
           f"float64 {json.dumps(a['float64'])}; float32 "
           f"{json.dumps(a['float32'])} (gamma bar {ASSOC_F32_BAR})")
+
+    with tempfile.TemporaryDirectory() as work:
+        xp = extraction_path(work)
+    print(f"extraction corpus: {len(EXTRACT_SECONDS)} recordings of "
+          f"{EXTRACT_SECONDS[0]:.0f} s at {EXTRACT_FS} Hz, {xp['windows']} "
+          f"windows, written in {xp['write_s']:.1f} s")
+    for tag in ("f32", "bf16"):
+        r = xp[tag]
+        print(f"extraction [{tag}] extract_to_ark on cuda, batch "
+              f"{EXTRACT_BATCH}: cold {r['cold_s']:.2f} s, warm "
+              f"{r['warm_s']:.2f} s ({r['audio_s_per_s']:.0f} audio s/s "
+              f"warm, wav decode to ark); one x-vector per window, keys and "
+              f"segments equal to the CPU run's ({xp['cpu_s']:.1f} s)")
+    for tag in ("f32", "bf16"):
+        t = xp["timing"][tag]
+        print(f"ResNet101 [{tag}] at [{EXTRACT_BATCH}, 64, 144]: "
+              f"{t['ms_per_batch']:.3f} ms a batch (median of 10, CUDA "
+              f"events), {t['windows_per_s']:.0f} windows/s, "
+              f"{t['audio_s_per_s']:.0f} audio s/s at 0.24 s a window, "
+              f"{t['tflop_per_s']:.1f} TFLOP/s of "
+              f"{xp['flop_per_batch'] / 1e12:.3f} TFLOP a batch; bound "
+              f"{t['bound_ms']:.3f} ms (operations)")
+    f = xp["timing"]["fbank_cmvn"]
+    print(f"fbank + CMVN of one {EXTRACT_SECONDS[0]:.0f} s recording "
+          f"({f['frames']} frames): {f['ms_per_recording']:.3f} ms (median "
+          f"of 5, CUDA events; {f['with_host_dither_ms']:.1f} ms with the "
+          f"host dither, {f['cold_fft_plans_ms']:.1f} ms making its cuFFT "
+          f"plans anew), {f['ms_per_128_windows']:.3f} ms per 128 "
+          f"windows, {f['audio_s_per_s']:.0f} audio s/s, "
+          f"{f['windows_per_s']:.0f} windows/s, {f['tflop_per_s']:.3f} "
+          f"TFLOP/s; bound {f['bound_ms'] * 1e3:.1f} us ({f['bound_by']})")
+    print(f"extraction checks: features card vs CPU {xp['feature_err']:.3g} "
+          f"(bar {FEATURE_F32_BAR}); float32 card vs CPU on 16 windows "
+          f"cosine >= {xp['card_vs_cpu_cos_min']:.7f}, max abs error / max "
+          f"{xp['card_vs_cpu_err']:.3g}; float32 ark vs CPU on its 14 full "
+          f"windows cosine >= {xp['ark_vs_cpu_cos_min']:.7f}, max abs error "
+          f"/ max {xp['ark_vs_cpu_err']:.3g}; padded tails vs true length "
+          f"{xp['padded_vs_true_err']:.3g}; bfloat16 vs float32 cosine >= "
+          f"{xp['bf16_vs_f32_cos_min']:.5f}")
+    r = xp["rttm"]
+    print(f"audio -> RTTM: {len(r['speakers'])} RTTMs from the extracted "
+          f"ark on cuda in {r['s']:.2f} s, K1 launches {r['k1_launches']}, "
+          f"speakers {r['speakers']}; phase {xp['seconds']:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

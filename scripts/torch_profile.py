@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Where the PyTorch/CUDA port's time goes, on one CUDA card.
 
-    python3 scripts/torch_profile.py [vb] [e2e] [mesh] [scan]
+    python3 scripts/torch_profile.py [vb] [e2e] [mesh] [scan] [extract]
 
-Run from the root of a checkout on a machine with a CUDA card. Four parts
+Run from the root of a checkout on a machine with a CUDA card. Five parts
 (all of them when none is named):
 
 1. vb: the VB engine alone (`vbx_batched`, kernel route, f32 and bf16
@@ -31,7 +31,19 @@ Run from the root of a checkout on a machine with a CUDA card. Four parts
    from the call's annotation where the trace names no such runtime
    call, which also counts the profiler's own work), the idle gaps
    between the call's device operations, the tail after the last one,
-   and the device's busy total.
+   and the device's busy total;
+5. extract: the extraction path at chip_smoke.py phase 7's shapes (one
+   5-minute synthetic recording, ResNet101 with its seeded weights, one
+   batch of 128 full windows): device time by kernel of one float32 and
+   one bfloat16 batch (`XVectorExtractor.embed_batch`, no mask, as
+   extract_file runs a batch of full windows), of the float32 batch with
+   two of its windows cut to tails of 10 and 77 frames (the masked
+   route), and of one recording's fbank + CMVN (`dithered_features`),
+   each warm under
+   torch.profiler; then, in turns, CUDA-event medians of the batch with
+   the model in NCHW and in channels_last memory format, with
+   torch.backends.cudnn.benchmark off and on, each variant's embeddings
+   held to the shipped float32 form's (cosine, max abs error / max).
 
 Prints a summary, then one JSON object with every number as its last
 line. The profiler's own cost inflates wall and host times; the unprofiled
@@ -50,7 +62,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PARTS = ("vb", "e2e", "mesh", "scan")
+PARTS = ("vb", "e2e", "mesh", "scan", "extract")
 SCAN_SHAPE = (1025, 256, 31)
 SCAN_REPS = 25
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -304,6 +316,79 @@ def part_scan(out):
     out["scan"] = res
 
 
+def part_extract(out):
+    import torch
+
+    import chip_smoke
+    from vbx_tpu_torch.device import full_fp32_matmuls
+    from vbx_tpu_torch.engine.extractor import XVectorExtractor
+    from vbx_tpu_torch.models.resnet import resnet101
+    from vbx_tpu_torch.testing import synth_audio
+
+    fs = chip_smoke.EXTRACT_FS
+    signal, vad = synth_audio(np.random.default_rng(13),
+                              chip_smoke.EXTRACT_SECONDS[0], fs)
+    torch.manual_seed(0)
+    models = {"f32": resnet101(64, 256)}
+    torch.nn.init.zeros_(models["f32"].embedding.bias)
+    models["bf16"] = resnet101(64, 256, dtype=torch.bfloat16)
+    models["bf16"].load_state_dict(models["f32"].state_dict())
+    ex = {k: XVectorExtractor(m, fs, device="cuda")
+          for k, m in models.items()}
+    dithered = ex["f32"].dither(signal)
+    with torch.inference_mode():
+        feats = ex["f32"].dithered_features(dithered, vad)
+    starts, _, _ = ex["f32"].windows(feats, "rec")
+    B = chip_smoke.EXTRACT_BATCH
+    st = torch.tensor(starts[:B], device="cuda")
+    ln = torch.tensor([144] * (B - 2) + [10, 77], device="cuda")
+
+    def batch(tag, lengths=None):
+        with torch.inference_mode(), full_fp32_matmuls():
+            return ex[tag].embed_batch(feats.stream, st, lengths)
+
+    def features():
+        with torch.inference_mode():
+            ex["f32"].dithered_features(dithered, vad)
+
+    for tag, fn in (("extract_f32_batch", lambda: batch("f32")),
+                    ("extract_bf16_batch", lambda: batch("bf16")),
+                    ("extract_f32_batch_with_tails",
+                     lambda: batch("f32", ln)),
+                    ("extract_fbank_cmvn", features)):
+        fn()
+        wall, kernels = _profile(fn)
+        out[tag] = _summary(wall, kernels)
+
+    ref = batch("f32").float()
+    variants = {}
+    saved = torch.backends.cudnn.benchmark
+    try:
+        for rep in range(2):
+            for tag in ("f32", "bf16"):
+                for fmt in (torch.contiguous_format, torch.channels_last):
+                    models[tag].to(memory_format=fmt)
+                    for bench in (False, True):
+                        torch.backends.cudnn.benchmark = bench
+                        layout = ("nhwc" if fmt is torch.channels_last
+                                  else "nchw")
+                        name = (f"{tag}_{layout}_bench_"
+                                f"{'on' if bench else 'off'}")
+                        got = batch(tag).float()
+                        ms = chip_smoke._cuda_ms(lambda: batch(tag), n=10)
+                        cos = torch.nn.functional.cosine_similarity(
+                            got, ref, dim=1).min().item()
+                        err = ((got - ref).abs().max()
+                               / ref.abs().max()).item()
+                        variants.setdefault(name, {"ms": [], "cos_min": cos,
+                                                   "err": err})
+                        variants[name]["ms"].append(ms)
+                models[tag].to(memory_format=torch.contiguous_format)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    out["extract_variants"] = variants
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -322,13 +407,14 @@ def main(argv=None) -> int:
     out = {"device": torch.cuda.get_device_name(0),
            "card": chip_smoke.card_line()}
     for part, fn in (("vb", part_vb), ("e2e", part_e2e), ("mesh", part_mesh),
-                     ("scan", part_scan)):
+                     ("scan", part_scan), ("extract", part_extract)):
         if part in parts:
             fn(out)
 
     print(f"card: {out['card']}")
     for part in ("vb_pallas", "vb_pallas_bf16", "e2e_pallas", "em_mesh_1x4",
-                 "em_solo"):
+                 "em_solo", "extract_f32_batch", "extract_bf16_batch",
+                 "extract_f32_batch_with_tails", "extract_fbank_cmvn"):
         if part not in out:
             continue
         r = out[part]
@@ -348,6 +434,11 @@ def main(argv=None) -> int:
                   f"busy {r['device_busy_ms']:.4f} in "
                   f"{r['device_ops']:g} ops, gaps {r['gaps_ms']:.4f}, tail "
                   f"{r['tail_ms']:.4f}; {walks}")
+    for name, r in out.get("extract_variants", {}).items():
+        print(f"extract batch {name}: "
+              f"{' / '.join(f'{ms:.3f}' for ms in r['ms'])} ms (median of "
+              f"10, CUDA events, in turns); vs shipped f32 cosine >= "
+              f"{r['cos_min']:.7f}, max abs error / max {r['err']:.3g}")
     print(json.dumps(out))
     return 0
 

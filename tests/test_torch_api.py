@@ -1,11 +1,11 @@
 """The port's public names against vbx_tpu's: every name that vbx_tpu's
-engine, ops, io, metrics, utils and parallel packages export imports from
-the port's package of the same name, but for an explicit list of names not
-ported yet and one kept rename. The names added to close that gap are held
-to vbx_tpu's functions on the same seeded inputs: masked_logsumexp,
-l2_normalize and cos_similarity (float64 to 1e-12, float32 to 1e-6), the
-module-level diarize_xvectors, and ahc_labels' warning that
-compute_backend='device' does nothing with PLDA scoring."""
+engine, ops, io, metrics, utils, parallel and models packages export
+imports from the port's package of the same name, but for an explicit
+list of names not ported yet and one kept rename. The names added to
+close that gap are held to vbx_tpu's functions on the same seeded inputs:
+masked_logsumexp, l2_normalize and cos_similarity (float64 to 1e-12,
+float32 to 1e-6), the module-level diarize_xvectors, and ahc_labels'
+warning that compute_backend='device' does nothing with PLDA scoring."""
 
 import importlib
 import re
@@ -27,13 +27,10 @@ from vbx_tpu_torch.engine import pipeline as tpipe
 from vbx_tpu_torch.ops import lse as tlse, similarity as tsim
 from vbx_tpu_torch.testing import host_threads, synth_models, synth_recording
 
-PACKAGES = ("engine", "ops", "io", "metrics", "utils", "parallel")
+PACKAGES = ("engine", "ops", "io", "metrics", "utils", "parallel", "models")
 
 # vbx_tpu names the port does not have yet, and why
 NOT_PORTED = {
-    **{name: "extraction codec: ROADMAP.md section 1, item 3" for name in (
-        "iter_mat_ark", "read_mat_ark", "read_mat_binary", "read_sparse_mat",
-        "write_mat_ark", "read_onnx", "read_lab")},
     "two_gmm_calib_lin": "device 2-GMM calibration: ROADMAP.md section 1, "
                          "item 1",
 }

@@ -413,3 +413,70 @@ def test_checkpointed_kernel_route_on_a_card_is_bit_equal(tmp_path):
     assert torch.equal(out.pi, ref.pi)
     np.testing.assert_array_equal(out.elbo.cpu().numpy(),
                                   ref.elbo.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_extraction_on_a_card_matches_the_cpu():
+    """A small extraction on the card against the same on the CPU, at
+    chip_smoke.py phase 7's bars: equal keys and times; extract_file's
+    float32 x-vectors on the card against the CPU's, cosine 0.99999 and
+    2e-4 x max; features within 1e-3; the float32 model on the same windows within cosine 0.99999 and
+    2e-4 x max; padded tails within 2e-4 x max of their true-length runs;
+    bfloat16 against float32 on the card, cosine > 0.999."""
+    _need_card()
+    from vbx_tpu_torch.device import full_fp32_matmuls
+    from vbx_tpu_torch.engine.extractor import XVectorExtractor
+    from vbx_tpu_torch.models.resnet import Bottleneck, ResNetXVector
+    from vbx_tpu_torch.testing import synth_audio
+
+    signal, segs = synth_audio(np.random.default_rng(0), 20.0)
+    torch.manual_seed(0)
+    models = {k: ResNetXVector(Bottleneck, (1, 2, 2, 1), 16, 64, 64,
+                               dtype=dt)
+              for k, dt in (("cpu", torch.float32), ("f32", torch.float32),
+                            ("bf16", torch.bfloat16))}
+    for k in ("f32", "bf16"):
+        models[k].load_state_dict(models["cpu"].state_dict())
+    ex = {k: XVectorExtractor(m, 16000, batch_size=16,
+                              device="cpu" if k == "cpu" else "cuda")
+          for k, m in models.items()}
+    out = {k: e.extract_file(signal, segs, "r") for k, e in ex.items()}
+    meta = [(s.key, s.start, s.end) for s in out["cpu"]]
+    assert len(meta) > 16
+    for k in ("f32", "bf16"):
+        assert [(s.key, s.start, s.end) for s in out[k]] == meta
+    h, a, b = (np.stack([s.xvector for s in out[k]])
+               for k in ("cpu", "f32", "bf16"))
+    # extract_file's own route (unmasked full batches, a masked last one)
+    # on the card against the CPU's, same weights
+    cos = (a * h).sum(1) / (np.linalg.norm(a, axis=1)
+                            * np.linalg.norm(h, axis=1))
+    assert cos.min() >= 0.99999, cos.min()
+    np.testing.assert_allclose(a, h, rtol=0, atol=2e-4 * np.abs(h).max())
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                            * np.linalg.norm(b, axis=1))
+    assert cos.min() > 0.999, cos.min()
+
+    with torch.inference_mode(), full_fp32_matmuls():
+        fc = ex["f32"].features(signal, segs)
+        fh = ex["cpu"].features(signal, segs)
+        assert fc.segments == fh.segments
+        assert float((fc.stream.cpu() - fh.stream).abs().max()) <= 1e-3
+        starts, _, _ = ex["f32"].windows(fc, "r")
+        st = torch.tensor(starts[:14] + starts[14:16], device="cuda")
+        ln = torch.tensor([144] * 14 + [10, 77], device="cuda")
+        card = ex["f32"].embed_batch(fc.stream, st, ln).cpu().numpy()
+        cpu = ex["cpu"].embed_batch(fc.stream.cpu(), st.cpu(),
+                                    ln.cpu()).numpy()
+        ar = torch.arange(144, device="cuda")
+        win = fc.stream[st[:, None] + ar[None, :]].transpose(1, 2)
+        alone = np.stack([models["f32"](win[i:i + 1, :, :int(ln[i])]
+                                        .contiguous())[0].cpu().numpy()
+                          for i in (14, 15)])
+    cos = (card * cpu).sum(1) / (np.linalg.norm(card, axis=1)
+                                 * np.linalg.norm(cpu, axis=1))
+    assert cos.min() >= 0.99999, cos.min()
+    np.testing.assert_allclose(card, cpu, rtol=0,
+                               atol=2e-4 * np.abs(cpu).max())
+    np.testing.assert_allclose(card[14:], alone, rtol=0,
+                               atol=2e-4 * np.abs(alone).max())

@@ -1,5 +1,7 @@
 """scripts/torch_profile.py's scan part reads a torch.profiler chrome trace
-per annotated call: checked here on a trace written by hand."""
+per annotated call: checked here on a trace written by hand. Also
+vbx_tpu_torch.utils.profiling: trace() off and on, and the device time it
+reads back from a trace."""
 
 import importlib.util
 import json
@@ -64,3 +66,46 @@ def test_trace_per_call_refuses_a_call_without_device_work(tmp_path):
         _x("user_annotation", "call::fb_scan_bwd", 0.0, 50.0)]}))
     with pytest.raises(RuntimeError, match="no device operation"):
         _script()._trace_per_call(str(path))
+
+
+def test_profiling_trace_is_a_no_op_without_a_directory(monkeypatch):
+    from vbx_tpu_torch.utils import profiling
+
+    monkeypatch.delenv("VBX_TPU_TRACE_DIR", raising=False)
+    with profiling.trace() as where:
+        assert where is None
+
+
+def test_profiling_trace_writes_a_trace_with_no_device_time_on_the_cpu(
+        tmp_path, monkeypatch):
+    """VBX_TPU_TRACE_DIR turns the capture on; a CPU-only trace has no
+    device work, so its executable time is None, not 0."""
+    import torch
+
+    from vbx_tpu_torch.utils import profiling
+
+    monkeypatch.setenv("VBX_TPU_TRACE_DIR", str(tmp_path))
+    with profiling.trace() as where:
+        with profiling.annotate("work"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert where == str(tmp_path)
+    files = list(tmp_path.glob("*.pt.trace.json.gz"))
+    assert len(files) == 1
+    assert profiling.parse_trace_executable_us(str(tmp_path)) is None
+    assert profiling.parse_trace_executable_us(str(tmp_path / "no")) is None
+
+
+def test_parse_trace_executable_us_sums_device_work_per_device(tmp_path):
+    """Kernel, memcpy and memset events summed per device pid, the busiest
+    device's total; host events and annotations do not count."""
+    from vbx_tpu_torch.utils import profiling
+
+    evs = [dict(_x("kernel", "conv", 10.0, 30.0), pid=0),
+           dict(_x("gpu_memcpy", "HtoD", 50.0, 5.5), pid=0),
+           dict(_x("kernel", "gemm", 10.0, 20.0), pid=1),
+           dict(_x("cpu_op", "aten::conv2d", 0.0, 100.0), pid=7),
+           dict(_x("user_annotation", "work", 0.0, 200.0), pid=0)]
+    (tmp_path / "h_1.5.pt.trace.json").write_text(
+        json.dumps({"traceEvents": evs}))
+    assert profiling.parse_trace_executable_us(str(tmp_path)) == \
+        pytest.approx(35.5)

@@ -1,11 +1,13 @@
 """vbx_tpu_torch — the PyTorch/CUDA port of vbx_tpu.
 
-VB-HMM speaker diarization from precomputed x-vectors (ark + segments +
-PLDA + x-vector transform -> RTTM) on an NVIDIA GPU. The module layout and
-function names follow vbx_tpu, which stays the reference this package is
-tested against; nothing here imports jax or vbx_tpu. Hand-written CUDA
-kernels (csrc/, behind ops.fb_kernel, ops.fb_product_kernel and
-ops.fb_scan_kernel) replace vbx_tpu's Pallas forward-backward kernels.
+Speaker diarization on an NVIDIA GPU: x-vector extraction from audio
+(wav + VAD -> fbank/CMVN -> ResNet -> ark + segments, engine.extractor)
+and VB-HMM diarization of the x-vectors (ark + segments + PLDA + x-vector
+transform -> RTTM). The module layout and function names follow
+vbx_tpu, which stays the reference this package is tested against;
+nothing here imports jax or vbx_tpu. Hand-written CUDA kernels (csrc/,
+behind ops.fb_kernel, ops.fb_product_kernel and ops.fb_scan_kernel)
+replace vbx_tpu's Pallas forward-backward kernels.
 
 Entry points take a `device` argument: 'cuda' unless the caller passes
 'cpu' (device.resolve_device); with no card they raise instead of falling

@@ -1,8 +1,9 @@
 """The batched VB-HMM engine and the diarization pipeline built around it
 (AHC / random initialization, label post-processing).
 
-The debug oracle (engine.debug, needs scipy.optimize) is not imported
-eagerly: the diarization path does not depend on it; import that module
+The x-vector extractor (engine.extractor) and the debug oracle
+(engine.debug, needs scipy.optimize) are not imported eagerly: the
+diarization path does not depend on them; import those modules
 directly."""
 
 from vbx_tpu_torch.engine.vbhmm import (  # noqa: F401

@@ -1,6 +1,7 @@
 """Synthetic diarization inputs made from a seed: x-vectors, a PLDA model
-and an x-vector transform trained on the same generator, and a corpus on
-disk (ark + segments + Kaldi PLDA file + transform.h5).
+and an x-vector transform trained on the same generator, a corpus on disk
+(ark + segments + Kaldi PLDA file + transform.h5), and audio with its VAD
+segments for the extractor.
 
 The tests and chip_smoke.py drive the port (and the JAX package) through
 these files, so no run needs the reference model assets. The x-vector
@@ -136,6 +137,69 @@ def write_corpus(out_dir: str, seed: int, lengths: Sequence[int],
     write_vec_ark(paths["ark"], records)
     write_segments(paths["segments"], rows)
     return {**paths, "truth": truth, "models": (plda, transform)}
+
+
+AUDIO_VOICES = 3   # harmonic "voices" of synth_audio
+
+
+def synth_audio(rng: np.random.Generator, seconds: float,
+                fs: int = 16000) -> Tuple[np.ndarray, np.ndarray]:
+    """(signal [N] float64 in [-1, 1), VAD segments [V, 2] in seconds).
+
+    Speech turns of 0.6-8 s, separated by 0.1-0.8 s pauses, each from one
+    of AUDIO_VOICES harmonic "voices" (a fundamental of 90-260 Hz with 3 %
+    vibrato and 12 harmonics of decaying amplitude, syllable-rate
+    amplitude modulation); low-level white noise throughout. After the
+    turns, two edge cases of the extractor: a 20 ms segment (shorter than
+    one 25 ms analysis window, above the 10 ms skip) and a 1.1 s one,
+    whose ~110 frames give a single tail window and no full one."""
+    n = int(seconds * fs)
+    t = np.arange(n) / fs
+    x = 0.003 * rng.standard_normal(n)
+    f0s = rng.uniform(90.0, 260.0, AUDIO_VOICES)
+    segs = []
+    pos = 0.3
+    tail_room = 2.0
+    while pos + 0.6 < seconds - tail_room:
+        dur = min(rng.uniform(0.6, 8.0), seconds - tail_room - pos)
+        v = rng.integers(AUDIO_VOICES)
+        a, b = int(pos * fs), int((pos + dur) * fs)
+        tt = t[a:b]
+        f0 = f0s[v] * (1.0 + 0.03 * np.sin(2 * np.pi * rng.uniform(3, 6)
+                                            * tt))
+        phase = 2 * np.pi * np.cumsum(f0) / fs
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(3, 5) * tt
+                                 + rng.uniform(0, 2 * np.pi))
+        voiced = sum(np.sin(k * phase) / k ** 1.2 for k in range(1, 13))
+        x[a:b] += 0.12 * env * voiced
+        segs.append((round(pos, 3), round(pos + dur, 3)))
+        pos += dur + rng.uniform(0.1, 0.8)
+    edge = seconds - tail_room + 0.1
+    segs += [(round(edge, 3), round(edge + 0.02, 3)),
+             (round(edge + 0.3, 3), round(edge + 1.4, 3))]
+    return np.clip(x, -1.0, 1.0 - 2.0 ** -15), np.asarray(segs, float)
+
+
+def write_audio_corpus(out_dir: str, seed: int, seconds: Sequence[float],
+                       fs: int = 16000) -> Tuple[List[str], List[str],
+                                                  List[str]]:
+    """Write one `<name>.wav` and `<name>.lab` per entry of `seconds`
+    (synth_audio) and return (names, wav paths, lab paths)."""
+    from vbx_tpu_torch.io.wav import write_wav
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    names, wavs, labs = [], [], []
+    for i, sec in enumerate(seconds):
+        name = f"audio{i:03d}"
+        signal, segs = synth_audio(rng, sec, fs)
+        wavs.append(os.path.join(out_dir, f"{name}.wav"))
+        labs.append(os.path.join(out_dir, f"{name}.lab"))
+        write_wav(wavs[-1], signal, fs)
+        with open(labs[-1], "w") as f:
+            f.writelines(f"{a:.3f} {b:.3f} sp\n" for a, b in segs)
+        names.append(name)
+    return names, wavs, labs
 
 
 def write_truth_rttms(out_dir: str, truth: Dict[str, np.ndarray]) -> None:
