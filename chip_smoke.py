@@ -103,15 +103,42 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    segments go through diarize_ark on cuda (kernel route, K1's launches
    counted) with a synthetic 256-d PLDA and transform: an RTTM for every
    recording (random weights: no DER is claimed);
-8. one JSON line listing every ported kernel with its numbers, the total
+8. device AHC at AHC_D = 128 (8 synthetic speaker clusters): the NN-chain
+   walk kernel (csrc/nn_chain.cu) at N = 6144, 10000, 16384 (ms, median of
+   3, steps, cycles a step, bound from the rows the walk read) against
+   the host float64 chain (linkage_dot_avg, once on all cores and, at 6144
+   and 10000, on one thread): sorted merge distances within AHC_PAIRS_BAR
+   and labels equal at the AHC cut and two gap-midpoint cuts; the walk's
+   per-step floor at N = 256; the kernel against its plain twin at
+   N = 2048 (the same contract); four lanes (6144 / 8000 / 10000 / 12000)
+   in one launch bit-equal to each alone and at another grid size; the
+   calibration sweeps, single and batched, within AHC_THR_BAR of the host
+   blocked sweep, with ms a pass against its bound and the whole
+   calibration's seconds against the host sweep's; ahc_labels('auto',
+   'cuda') at N = 10000 launching the walk once, no fallback, the 'host'
+   labels; and the corpus pre-stage: 4 recordings of PRE_LENGTHS through
+   diarize_ark (pre_linkage_recordings == 4, walk launches counted),
+   initial labels and RTTMs equal to a compute_backend='host' run;
+9. serving: DiarizationService(device='cuda') on the callhome preset (its
+   'pallas_bf16' overridden by the serving default 'pallas') over the
+   64-recording smoke corpus, submitted from SERVE_THREADS threads: labels
+   equal to diarize_ark's, requests/s, p50/p95 latency, batches, K1
+   launched; one AMI-length request (AMI_N x-vectors): one walk launch, no
+   fallback to the host chain, labels equal to a 'host' service's; the
+   HTTP daemon (python -m vbx_tpu_torch.cli.serve on a free local port,
+   phase 7's seeded ResNet101 checkpoint): /healthz names cuda and the
+   card, an inline, an ark and a wav request answer 200, the corpus ark at
+   an admission bound of 1 answers 503, SIGTERM drains it;
+10. one JSON line listing every ported kernel with its numbers, the total
    seconds;
-9. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+11. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Without a card, or outside a checkout, it exits non-zero before printing
 any result.
 """
 
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import json
@@ -1586,6 +1613,548 @@ def mesh_path(work: str) -> dict:
     return out
 
 
+# device AHC (phase 8): synthetic cosine AHC inputs, AHC_CLUSTERS speaker
+# clusters in AHC_D dims (the presets' lda_dim), at vbx_tpu's measured N
+AHC_NS = (6144, 10000, 16384)
+AHC_ONE_THREAD_NS = (6144, 10000)
+AHC_D = 128
+AHC_CLUSTERS = 8
+AHC_TWIN_N = 2048
+AHC_BATCH_NS = (6144, 8000, 10000, 12000)
+AHC_FLOOR_N = 256          # a walk this short shows the per-step floor
+AHC_PAIRS_BAR = 1e-12      # the float64 walk's sorted merge distances vs
+                           # the host chain's and the twin's
+AHC_THR_BAR = 5e-5         # device vs host threshold, tests/test_ahc.py
+PRE_LENGTHS = (6500, 8000, 10000, 12000)
+SM_CLOCK_HZ = 1.98e9       # the H100's SM clock under load (nvidia-smi)
+# serving (phase 9)
+SERVE_THREADS = 8
+AMI_N = 8750               # ~35 minutes of x-vectors at 0.24 s
+
+
+def ahc_xn(n: int, seed: int, d: int = AHC_D, k: int = AHC_CLUSTERS):
+    """[n, d] float64 l2-normalized rows around k centres
+    (tests/test_clustering.py's recipe)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((k, d))
+    x = centers[rng.integers(0, k, n)] + 0.5 * rng.standard_normal((n, d))
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def walk_to_z(out, m: int, n: int):
+    from vbx_tpu_torch.clustering.device import _finalize
+
+    ma, mb, md = (t[m, :n - 1].cpu().numpy() for t in out[:3])
+    return _finalize(ma, mb, md, n)
+
+
+def cut_labels_equal(Z, Zref, thr: float, bias: float) -> bool:
+    """Labels of Z and Zref equal at the AHC cut -(thr + bias) and at two
+    cuts in the middle of Zref's merge gaps (tests/test_clustering.py)."""
+    import numpy as np
+
+    from vbx_tpu_torch.clustering import fcluster_by_distance
+
+    n = len(Zref) + 1
+    adjust = abs(Zref[:, 2].min())
+    ds = np.sort(Zref[:, 2])
+    cuts = [-(thr + bias) + adjust]
+    for q in (0.3, 0.7):
+        i = int(q * (n - 1))
+        cuts.append(0.5 * (ds[i] + ds[i + 1]) + adjust)
+    for cut in cuts:
+        la, lb = (fcluster_by_distance(
+            np.c_[z[:, :2], z[:, 2] + adjust, z[:, 3]], cut)
+            for z in (Z, Zref))
+        if not np.array_equal(la, lb):
+            return False
+    return True
+
+
+def walk_bound_ms(steps: int, rows: int, n: int, d: int = AHC_D) -> float:
+    """The bytes this walk read, over the card's HBM rate: each step the
+    sum rows and sizes of its live clusters (`rows` sums their count over
+    the steps, as the kernel counted it) and the lane's n active flags.
+    The sums stay in L2 through the walk, so the HBM rate overstates the
+    time these bytes need (csrc/nn_chain.cu)."""
+    return (rows * (d + 1) * 8 + steps * n * 4) / HBM_BYTES_PER_S * 1e3
+
+
+def device_ahc_path(work: str) -> dict:
+    """Phase 8: the NN-chain walk kernel, the calibration sweeps, the
+    'auto' route and the corpus pre-stage (module docstring)."""
+    import numpy as np
+    import torch
+
+    from vbx_tpu_torch.clustering import (linkage_dot_avg,
+                                          set_native_threads)
+    from vbx_tpu_torch.clustering import device as cdev
+    from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.device import full_fp32_matmuls
+    from vbx_tpu_torch.engine import ahc
+    from vbx_tpu_torch.engine import pipeline
+    from vbx_tpu_torch.ops import calibration
+    from vbx_tpu_torch.testing import write_corpus
+
+    t_phase = time.perf_counter()
+    bias = get_preset("example").ahc.threshold
+    cores = os.cpu_count() or 1
+    out = {"walk": {}, "sweep": {}}
+
+    def walk(sums, ns, **kw):
+        r = cdev.nn_chain_walk(sums, ns, **kw)
+        torch.cuda.synchronize()
+        return r
+
+    def timed(fn, n=3):
+        fn()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    for n in AHC_NS:
+        xn = ahc_xn(n, n)
+        sums = torch.from_numpy(xn)[None].cuda()
+        ms = timed(lambda: walk(sums, [n]))
+        res = walk(sums, [n])
+        if bool(res[3][0]):
+            fail(f"walk at N={n}: the reducibility guard tripped")
+        steps, rows = int(res[4][0]), int(res[5][0])
+        Zd = walk_to_z(res, 0, n)
+        set_native_threads(cores)
+        t0 = time.perf_counter()
+        Zh = linkage_dot_avg(xn, backend="native")
+        host_s = time.perf_counter() - t0
+        host1_s = None
+        if n in AHC_ONE_THREAD_NS:
+            set_native_threads(1)
+            t0 = time.perf_counter()
+            linkage_dot_avg(xn, backend="native")
+            host1_s = time.perf_counter() - t0
+            set_native_threads(cores)
+        dd = float(np.abs(np.sort(Zh[:, 2]) - np.sort(Zd[:, 2])).max())
+        t0 = time.perf_counter()
+        _, thr_h = ahc._blocked_cosine_condensed_and_thr(
+            xn, want_condensed=False)
+        host_thr_s = time.perf_counter() - t0
+        if not dd < AHC_PAIRS_BAR or Zd[-1, 3] != n:
+            fail(f"walk at N={n}: sorted distances off by {dd}")
+        if not cut_labels_equal(Zd, Zh, thr_h, bias):
+            fail(f"walk at N={n}: labels differ from the host chain's")
+        # the calibration sweep: threshold against the host's, one pass
+        calibration.two_gmm_calib_cosine_device(xn, device="cuda")
+        t0 = time.perf_counter()
+        thr_d = calibration.two_gmm_calib_cosine_device(xn, device="cuda")
+        dev_thr_s = time.perf_counter() - t0
+        if not abs(thr_d - thr_h) < AHC_THR_BAR:
+            fail(f"sweep at N={n}: threshold {thr_d} vs host {thr_h}")
+        n_pad = calibration._padded_rows(n, 512)
+        xp = torch.zeros((1, n_pad, AHC_D), device="cuda")
+        xp[0, :n] = sums[0].float()
+        nsd = torch.tensor([n], device="cuda")
+        dc = torch.tensor([3.0], device="cuda")
+        with full_fp32_matmuls():
+            pass_ms = _cuda_ms(lambda: calibration._cosine_sweep(
+                xp, nsd, dc, -dc, 512), n=5)
+            mm_ms = _cuda_ms(lambda: torch.bmm(
+                xp[:, :4096], xp.transpose(1, 2)), n=5) * n_pad / 4096
+        out["walk"][n] = {
+            "ms": ms, "steps": steps, "us_per_step": ms * 1e3 / steps,
+            "cycles_per_step": ms * 1e-3 * SM_CLOCK_HZ / steps,
+            "rows": rows, "bound_ms": walk_bound_ms(steps, rows, n),
+            "grid": cdev.nn_chain_walk.grid,
+            "host_s": host_s, "host_1thread_s": host1_s, "dist_err": dd}
+        out["sweep"][n] = {
+            "thr_err": abs(thr_d - thr_h), "n_pad": n_pad,
+            "device_s": dev_thr_s, "host_s": host_thr_s,
+            "pass_ms": pass_ms, "matmul_ms": mm_ms,
+            "bound_ms": 2 * n * n * AHC_D / F32_OPS_PER_S * 1e3}
+
+    # the per-step floor: a walk this short is barriers and bookkeeping
+    xf = torch.from_numpy(ahc_xn(AHC_FLOOR_N, 1))[None].cuda()
+    f_ms = timed(lambda: walk(xf, [AHC_FLOOR_N]), n=5)
+    f_steps = int(walk(xf, [AHC_FLOOR_N])[4][0])
+    out["floor"] = {"n": AHC_FLOOR_N, "steps": f_steps,
+                    "us_per_step": f_ms * 1e3 / f_steps}
+
+    # the kernel against its plain twin (the JSON line's numbers)
+    n = AHC_TWIN_N
+    xn = ahc_xn(n, 5)
+    sums = torch.from_numpy(xn)[None].cuda()
+    k_res = walk(sums, [n])
+    t0 = time.perf_counter()
+    p_res = cdev.nn_chain_walk_plain(sums, [n])
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ms = timed(lambda: walk(sums, [n]), n=5)
+    Zk, Zp = walk_to_z(k_res, 0, n), walk_to_z(p_res, 0, n)
+    err = float(np.abs(np.sort(Zk[:, 2]) - np.sort(Zp[:, 2])).max())
+    _, thr_h = ahc._blocked_cosine_condensed_and_thr(xn, want_condensed=False)
+    if bool(p_res[3][0]) or not err < AHC_PAIRS_BAR \
+            or not cut_labels_equal(Zk, Zp, thr_h, bias):
+        fail(f"walk kernel vs its plain twin at N={n}: distances {err}")
+    steps, rows = int(k_res[4][0]), int(k_res[5][0])
+    same = bool(torch.equal(k_res[0], p_res[0])
+                and torch.equal(k_res[1], p_res[1]))
+    if same and (steps != int(p_res[4][0]) or rows != int(p_res[5][0])):
+        fail(f"walk kernel vs its plain twin at N={n}: the same merges in "
+             f"other steps or scans")
+    out["twin"] = {"n": n, "ms": ms, "plain_ms": plain_ms,
+                   "max_abs_err": err, "steps": steps, "rows": rows,
+                   "twin_steps": int(p_res[4][0]),
+                   "bound_ms": walk_bound_ms(steps, rows, n),
+                   "same_pairs": float(np.mean(
+                       np.all(Zk[:, :2] == Zp[:, :2], axis=1)))}
+
+    # batch invariance: four lanes in one launch, bit-equal alone, and at
+    # another grid size; the batched call's time
+    ns = list(AHC_BATCH_NS)
+    xs = [ahc_xn(n, 100 + n) for n in ns]
+    big = np.zeros((len(ns), max(ns), AHC_D))
+    for m, x in enumerate(xs):
+        big[m, :len(x)] = x
+    big = torch.from_numpy(big).cuda()
+    batched_ms = timed(lambda: walk(big, ns))
+    full = walk(big, ns)
+    grid1 = walk(big, ns, blocks_per_sm=1)
+    for m, n in enumerate(ns):
+        alone = walk(big[m:m + 1, :n].contiguous(), [n])
+        for j in range(6):
+            if j > 2:      # bad, steps, rows: one number a lane
+                if not int(full[j][m]) == int(alone[j][0]) \
+                        == int(grid1[j][m]):
+                    fail(f"walk lane N={n}: output {j} differs alone / "
+                         f"batched / at another grid")
+                continue
+            for other in (alone[j][0], grid1[j][m]):
+                if not torch.equal(full[j][m, :n - 1], other[:n - 1]):
+                    fail(f"walk lane N={n}: not bit-equal alone / batched / "
+                         f"at another grid")
+    out["batched"] = {"ns": ns, "ms": batched_ms,
+                      "steps": [int(v) for v in full[4].cpu()],
+                      "bound_ms": sum(
+                          walk_bound_ms(int(st), int(r), n) for st, r, n
+                          in zip(full[4].cpu(), full[5].cpu(), ns))}
+    thr_b = calibration.two_gmm_calib_cosine_device_batched(xs,
+                                                            device="cuda")
+    errs = []
+    for m, x in enumerate(xs):
+        _, th = ahc._blocked_cosine_condensed_and_thr(x,
+                                                      want_condensed=False)
+        errs.append(abs(thr_b[m] - th))
+        if not errs[-1] < AHC_THR_BAR:
+            fail(f"batched sweep lane N={ns[m]}: {thr_b[m]} vs host {th}")
+    out["batched"]["thr_err"] = max(errs)
+
+    # the 'auto' route at N=10000 launches the walk once, no fallback
+    xn = ahc_xn(10000, 10000)
+    before = cdev.nn_chain_walk.launches
+    ahc._try_device_linkage.fallbacks = 0
+    import warnings as _w
+    with _w.catch_warnings(record=True) as caught:
+        _w.simplefilter("always")
+        lab_auto = ahc.ahc_labels(xn, bias, compute_backend="auto",
+                                  device="cuda")
+    if ahc._try_device_linkage.fallbacks or any(
+            "falling back" in str(c.message) for c in caught):
+        fail("ahc_labels('auto', cuda) at N=10000 fell back to the host")
+    if cdev.nn_chain_walk.launches != before + 1:
+        fail("ahc_labels('auto', cuda) at N=10000 did not launch the walk "
+             "once")
+    lab_host = ahc.ahc_labels(xn, bias, compute_backend="host")
+    if not np.array_equal(lab_auto, lab_host):
+        fail("ahc_labels('auto', cuda) at N=10000: labels differ from "
+             "'host'")
+    out["auto_clusters"] = int(lab_auto.max()) + 1
+
+    # the corpus pre-stage: 4 AMI-length recordings through diarize_ark
+    t0 = time.perf_counter()
+    corpus = write_corpus(os.path.join(work, "pre"), 21, PRE_LENGTHS,
+                          (4, 5, 6, 8))
+    write_s = time.perf_counter() - t0
+    seen = {}
+    real = pipeline.Diarizer.initial_labels
+
+    def spy(tag):
+        def initial_labels(self, x, seed=0, **kw):
+            lab = real(self, x, seed=seed, **kw)
+            seen[(tag, len(x))] = lab
+            return lab
+        return initial_labels
+
+    runs = {}
+    host_cfg = get_preset("example")
+    host_cfg = host_cfg.replace(ahc=dataclasses.replace(
+        host_cfg.ahc, compute_backend="host"))
+    for tag, cfg in (("auto", get_preset("example")), ("host", host_cfg)):
+        pipeline.Diarizer.initial_labels = spy(tag)
+        cdev.nn_chain_walk.launches = 0
+        runlog = os.path.join(work, f"pre_{tag}.jsonl")
+        t0 = time.perf_counter()
+        try:
+            pipeline.diarize_ark(
+                corpus["ark"], corpus["segments"],
+                os.path.join(work, f"pre_{tag}"), cfg, corpus["plda"],
+                corpus["transform"], verbose=False, fb_impl="pallas",
+                device="cuda", runlog_path=runlog)
+        finally:
+            pipeline.Diarizer.initial_labels = real
+        stages = [json.loads(line) for line in open(runlog)
+                  if '"stages"' in line][-1]
+        runs[tag] = {"s": time.perf_counter() - t0,
+                     "walk_launches": cdev.nn_chain_walk.launches,
+                     "stages": stages}
+    st = runs["auto"]["stages"]
+    if st.get("pre_linkage_recordings") != len(PRE_LENGTHS):
+        fail(f"pre-stage linked {st.get('pre_linkage_recordings')} of "
+             f"{len(PRE_LENGTHS)} recordings")
+    if runs["host"]["walk_launches"] or not runs["auto"]["walk_launches"]:
+        fail(f"pre-stage walk launches: {runs}")
+    for n in PRE_LENGTHS:
+        if not np.array_equal(seen[("auto", n)], seen[("host", n)]):
+            fail(f"pre-stage initial labels at N={n} differ from 'host'")
+    for f in sorted(os.listdir(os.path.join(work, "pre_host"))):
+        a, b = (open(os.path.join(work, d, f)).read()
+                for d in ("pre_auto", "pre_host"))
+        if a != b:
+            fail(f"pre-stage RTTM {f} differs from the 'host' run's")
+    out["pre"] = {"write_s": write_s, "auto_s": runs["auto"]["s"],
+                  "host_s": runs["host"]["s"],
+                  "walk_launches": runs["auto"]["walk_launches"],
+                  "pre_linkage_s": st["pre_linkage_s"],
+                  "pre_linkage_recordings": st["pre_linkage_recordings"],
+                  "init_s": {k: r["stages"]["init_s"]
+                             for k, r in runs.items()}}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(base: str, path: str, payload=None):
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"{base}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serving_path(work: str) -> dict:
+    """Phase 9: DiarizationService on the card over the smoke corpus from
+    SERVE_THREADS threads, one AMI-length request, and the HTTP daemon."""
+    import signal
+    import threading
+    import warnings as _w
+
+    import numpy as np
+    import torch
+
+    from vbx_tpu_torch.clustering import device as cdev
+    from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.engine import ahc
+    from vbx_tpu_torch.io.ark import (group_by_recording, iter_vec_ark,
+                                      write_vec_ark)
+    from vbx_tpu_torch.io.segments import (read_xvector_timing_dict,
+                                           write_segments)
+    from vbx_tpu_torch.models.resnet import resnet101
+    from vbx_tpu_torch.ops import fb_kernel
+    from vbx_tpu_torch.serving import DiarizationService
+    from vbx_tpu_torch.testing import synth_recording, write_audio_corpus
+
+    t_phase = time.perf_counter()
+    corpus = smoke_corpus(work)
+    cfg = get_preset("callhome")      # a corpus preset: 'pallas_bf16'
+    ref = diarize(corpus, os.path.join(work, "offline"), cfg, "cuda",
+                  "pallas")
+    segs = read_xvector_timing_dict(corpus["segments"])
+    recs = [(rec, x, segs[rec][1]) for rec, _, x in
+            group_by_recording(iter_vec_ark(corpus["ark"]))]
+    with _w.catch_warnings(record=True) as caught:
+        _w.simplefilter("always")
+        svc = DiarizationService.from_files(cfg, corpus["plda"],
+                                            corpus["transform"],
+                                            device="cuda")
+    if svc._fb_impl != "pallas" or not any(
+            "overriding the config's" in str(c.message) for c in caught):
+        fail(f"the service's engine is {svc._fb_impl!r}, not the serving "
+             f"default 'pallas' over the preset's 'pallas_bf16'")
+    out = {}
+    try:
+        svc.warmup(batch_sizes=(1, 8), payload=recs[0][1:])
+        fb_kernel.fb_fused_sb.launches = 0
+        cdev.nn_chain_walk.launches = 0
+        results, errors = {}, []
+        lock = threading.Lock()
+
+        def client(items):
+            try:
+                futs = [(rec, svc.submit(rec, x, ts)) for rec, x, ts in items]
+                for rec, f in futs:
+                    r = f.result(timeout=600)
+                    with lock:
+                        results[rec] = r
+            except Exception as exc:   # noqa: BLE001 — reported below
+                errors.append(exc)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client,
+                                    args=(recs[k::SERVE_THREADS],))
+                   for k in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors or len(results) != len(recs):
+            fail(f"service: {len(results)} results, errors {errors[:2]}")
+        k1 = fb_kernel.fb_fused_sb.launches
+        if k1 < 1:
+            fail("service: K1 was not launched")
+        diff = [rec for rec in results if not np.array_equal(
+            results[rec].labels1st, ref[rec].labels1st)]
+        if diff:
+            fail(f"service labels differ from diarize_ark's on {diff[:4]}")
+        lat = np.array([r.wall_ms for r in results.values()])
+        stats = svc.stats()
+        out["service"] = {
+            "requests": len(results), "threads": SERVE_THREADS,
+            "wall_s": wall, "req_per_s": len(results) / wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p95_ms": float(np.percentile(lat, 95)),
+            "batches": stats["batches"], "max_batch": stats["max_batch"],
+            "k1_launches": k1, "walk_launches": cdev.nn_chain_walk.launches}
+
+        # one AMI-length request: one walk launch, the host route's labels
+        x_ami, _ = synth_recording(np.random.default_rng(35), AMI_N, 6)
+        ts_ami = np.stack([np.arange(AMI_N) * 0.24,
+                           np.arange(AMI_N) * 0.24 + 1.44], axis=1)
+        cdev.nn_chain_walk.launches = 0
+        ahc._try_device_linkage.fallbacks = 0
+        t0 = time.perf_counter()
+        r_ami = svc.diarize("ami", x_ami, ts_ami, timeout=600)
+        ami_s = time.perf_counter() - t0
+        if cdev.nn_chain_walk.launches != 1:
+            fail(f"AMI-length request: {cdev.nn_chain_walk.launches} walk "
+                 f"launches")
+        if ahc._try_device_linkage.fallbacks:
+            fail("AMI-length request: the walk's guard tripped and the "
+                 "host chain answered")
+        host_cfg = cfg.replace(ahc=dataclasses.replace(
+            cfg.ahc, compute_backend="host"))
+        with DiarizationService(host_cfg, *corpus["models"], device="cuda",
+                                fb_impl="pallas") as s_host:
+            want = s_host.diarize("ami", x_ami, ts_ami,
+                                  timeout=600).labels1st
+        if not np.array_equal(r_ami.labels1st, want):
+            fail("AMI-length request: labels differ from the host route's")
+        out["ami"] = {"n": AMI_N, "s": ami_s, "speakers": r_ami.n_speakers,
+                      "iters": r_ami.n_iters}
+    finally:
+        svc.close()
+
+    # the HTTP daemon: a subprocess on a free local port
+    torch.manual_seed(0)
+    model = resnet101(64, 256)           # phase 7's seeded checkpoint
+    torch.nn.init.zeros_(model.embedding.bias)
+    ckpt = os.path.join(work, "resnet101.pth")
+    torch.save(model.state_dict(), ckpt)
+    del model
+    names, wavs, labs = write_audio_corpus(os.path.join(work, "audio"), 17,
+                                           (60.0,), EXTRACT_FS)
+    rec0, x0, ts0 = recs[0]
+    one_ark = os.path.join(work, "one.ark")
+    one_seg = os.path.join(work, "one.seg")
+    write_vec_ark(one_ark, [(f"{rec0}_{i:05d}", v) for i, v in
+                            enumerate(x0)])
+    write_segments(one_seg, [(f"{rec0}_{i:05d}", rec0, float(s), float(e))
+                             for i, (s, e) in enumerate(ts0)])
+    port = _free_port()
+    log = open(os.path.join(work, "serve.log"), "w+")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vbx_tpu_torch.cli.serve", "--preset",
+         "callhome", "--plda-file", corpus["plda"], "--xvec-transform",
+         corpus["transform"], "--weights", ckpt, "--port", str(port),
+         "--device", "cuda", "--max-pending-requests", "1"],
+        cwd=HERE, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        for _ in range(600):
+            try:
+                code, health = _http(base, "/healthz")
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    log.seek(0)
+                    fail(f"daemon exited: {log.read()[-2000:]}")
+                time.sleep(0.25)
+        else:
+            fail("the daemon never answered /healthz")
+        up_s = time.perf_counter() - t0
+        kind = torch.cuda.get_device_name(0)
+        if health.get("backend") != "cuda" or health.get("device") != kind \
+                or health.get("audio") is not True:
+            fail(f"/healthz: {health}")
+        code, r_in = _http(base, "/diarize", {
+            "recording": rec0, "xvectors": x0.tolist(),
+            "timestamps": ts0.tolist()})
+        with open(os.path.join(work, "offline", f"{rec0}.rttm")) as fp:
+            want_rttm = fp.read()
+        if code != 200 or r_in["rttm"] != want_rttm:
+            fail(f"inline request: {code} {str(r_in)[:300]}")
+        code, r_ark = _http(base, "/diarize", {"xvec_ark_file": one_ark,
+                                               "segments_file": one_seg})
+        if code != 200 or r_ark["results"][rec0]["rttm"] != want_rttm:
+            fail(f"ark request: {code} {str(r_ark)[:300]}")
+        code, r_wav = _http(base, "/diarize", {"wav_file": wavs[0],
+                                               "lab_file": labs[0]})
+        if code != 200 or not r_wav["rttm"].startswith(
+                f"SPEAKER {names[0]} 1 "):
+            fail(f"wav request: {code} {str(r_wav)[:300]}")
+        # the whole corpus's ark at an admission bound of 1: the second
+        # recording is refused
+        code, r_503 = _http(base, "/diarize", {
+            "xvec_ark_file": corpus["ark"],
+            "segments_file": corpus["segments"]})
+        if code != 503 or "max_pending_requests" not in r_503["error"]:
+            fail(f"overload: {code} {str(r_503)[:300]}")
+        code, stats = _http(base, "/stats")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        log.seek(0)
+        text = log.read()
+        if rc != 0 or "drained and stopped" not in text:
+            fail(f"daemon SIGTERM: rc {rc}, {text[-1500:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    out["http"] = {"up_s": up_s, "healthz": health,
+                   "wav_speakers": r_wav["n_speakers"],
+                   "inline_ms": r_in["wall_ms"], "wav_ms": r_wav["wall_ms"],
+                   "stats_requests": stats["requests"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1807,6 +2376,78 @@ def main() -> int:
     print(f"audio -> RTTM: {len(r['speakers'])} RTTMs from the extracted "
           f"ark on cuda in {r['s']:.2f} s, K1 launches {r['k1_launches']}, "
           f"speakers {r['speakers']}; phase {xp['seconds']:.1f} s")
+
+    with tempfile.TemporaryDirectory() as work:
+        ap = device_ahc_path(work)
+    for n, w in ap["walk"].items():
+        sw = ap["sweep"][n]
+        one = (f", one thread {w['host_1thread_s']:.2f} s"
+               if w["host_1thread_s"] is not None else "")
+        print(f"walk N={n}, D={AHC_D}: {w['ms']:.1f} ms (median of 3, one "
+              f"launch, grid {w['grid']}), {w['steps']} steps, "
+              f"{w['us_per_step']:.2f} us = {w['cycles_per_step']:.0f} "
+              f"cycles a step; {w['rows']} rows scanned, bound "
+              f"{w['bound_ms']:.1f} ms (bytes at the HBM rate); host "
+              f"f64 chain {w['host_s']:.2f} s on {os.cpu_count()} cores"
+              f"{one}; sorted distances within {w['dist_err']:.2e}, labels "
+              f"equal at the AHC cut and two gap cuts")
+        print(f"sweep N={n} (padded {sw['n_pad']}): {sw['pass_ms']:.2f} ms "
+              f"a pass (median of 5), its product {sw['matmul_ms']:.2f} ms, "
+              f"bound {sw['bound_ms']:.3f} ms (operations); the whole "
+              f"calibration {sw['device_s']:.3f} s (warm) vs the host "
+              f"blocked sweep {sw['host_s']:.2f} s; threshold vs host "
+              f"{sw['thr_err']:.2e}")
+    f = ap["floor"]
+    t = ap["twin"]
+    b = ap["batched"]
+    print(f"walk floor at N={f['n']}: {f['us_per_step']:.2f} us a step "
+          f"({f['steps']} steps)")
+    print(f"walk vs plain twin at N={t['n']}: {t['ms']:.2f} ms vs "
+          f"{t['plain_ms']:.0f} ms, sorted distances within "
+          f"{t['max_abs_err']:.2e}, labels equal at the cuts, merge pairs "
+          f"equal {t['same_pairs']:.4f}, steps {t['steps']} / "
+          f"{t['twin_steps']}, {t['rows']} rows scanned, bound "
+          f"{t['bound_ms']:.2f} ms")
+    print(f"walk batched N={b['ns']}: {b['ms']:.1f} ms one launch, steps "
+          f"{b['steps']}, bound {b['bound_ms']:.1f} ms; every lane "
+          f"bit-equal alone and at another grid; batched sweep within "
+          f"{AHC_THR_BAR} of the host")
+    p = ap["pre"]
+    print(f"pre-stage: {len(PRE_LENGTHS)} recordings of {list(PRE_LENGTHS)} "
+          f"through diarize_ark: pre_linkage_recordings "
+          f"{p['pre_linkage_recordings']} in {p['pre_linkage_s']:.2f} s, "
+          f"{p['walk_launches']} walk launches; init {p['init_s']}; run "
+          f"{p['auto_s']:.1f} s vs 'host' {p['host_s']:.1f} s; initial "
+          f"labels and RTTMs equal; 'auto' at N=10000 launched the walk "
+          f"once ({ap['auto_clusters']} clusters, equal to 'host'); phase "
+          f"{ap['seconds']:.1f} s")
+    kernels.append({
+        "name": "nn_chain_walk", "route": "cuda",
+        "source": "vbx_tpu_torch/csrc/nn_chain.cu",
+        "replaces": "vbx_tpu/clustering/device.py:63 (_nn_chain_batched_jit,"
+                    " an XLA while_loop; no pl.pallas_call)",
+        "launches": p["walk_launches"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "library_ms": None})
+
+    with tempfile.TemporaryDirectory() as work:
+        sp = serving_path(work)
+    v = sp["service"]
+    print(f"service on cuda (callhome preset, engine 'pallas'): "
+          f"{v['requests']} requests from {v['threads']} threads in "
+          f"{v['wall_s']:.2f} s = {v['req_per_s']:.1f} requests/s, latency "
+          f"p50 {v['p50_ms']:.0f} ms p95 {v['p95_ms']:.0f} ms, "
+          f"{v['batches']} batches, max batch {v['max_batch']}, K1 launches "
+          f"{v['k1_launches']}; labels equal to diarize_ark's")
+    a = sp["ami"]
+    print(f"service AMI-length request N={a['n']}: {a['s']:.2f} s, one walk "
+          f"launch, no fallback, {a['speakers']} speakers, labels equal to "
+          f"the host route's")
+    h = sp["http"]
+    print(f"HTTP daemon: up in {h['up_s']:.1f} s, /healthz {h['healthz']}; "
+          f"inline {h['inline_ms']:.0f} ms, ark, wav {h['wav_ms']:.0f} ms "
+          f"({h['wav_speakers']} speakers) answered 200, overload 503, "
+          f"SIGTERM drained; phase {sp['seconds']:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -5,6 +5,7 @@ same native library), PLDA scores to float64 roundoff."""
 
 import numpy as np
 import pytest
+import torch
 
 from vbx_tpu.engine import ahc as jahc
 from vbx_tpu.ops import calibration as jcal
@@ -83,13 +84,23 @@ def test_plda_labels_equal(models, T):
 
 
 def test_device_backend_requests_run_the_host_chain(models):
-    """compute_backend is validated as in vbx_tpu; every accepted value
-    runs the float64 host chain in the port."""
+    """compute_backend is validated as in vbx_tpu. With device='cpu' 'auto'
+    runs the float64 host chain, and a short 'device' request scores in
+    float32 on the CPU and calibrates in float64 on the host, as vbx_tpu's
+    'device' does on its CPU backend: the same labels on these inputs.
+    'host' and a short 'auto' request never resolve the device; a
+    'device' request with no card and no device raises."""
     x = _transformed(models, 400, 3, seed=9)
     ref = tahc.ahc_labels(x, -0.015, compute_backend="host")
     for backend in ("auto", "device"):
         np.testing.assert_array_equal(
-            tahc.ahc_labels(x, -0.015, compute_backend=backend), ref)
+            tahc.ahc_labels(x, -0.015, compute_backend=backend,
+                            device="cpu"), ref)
+    np.testing.assert_array_equal(
+        tahc.ahc_labels(x, -0.015, compute_backend="auto"), ref)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tahc.ahc_labels(x, -0.015, compute_backend="device")
     with pytest.raises(ValueError, match="compute_backend"):
         tahc.ahc_labels(x, -0.015, compute_backend="Host")
 
@@ -145,3 +156,183 @@ def test_calibration_numpy_paths_equal():
     finally:
         clustering._lib, clustering._lib_failed = lib, False
     np.testing.assert_allclose(plain_t, native, rtol=1e-12)
+
+
+# -- the device routes (tests/test_ahc.py's routing tests) -----------------
+
+
+def _centers_x(seed, k, n, d, scale=0.6, noise=0.5):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((k, d)) * scale
+    return centers[rng.integers(0, k, n)] + noise * rng.standard_normal(
+        (n, d))
+
+
+def test_precomputed_thr_short_circuits_host_passes(monkeypatch):
+    """tests/test_ahc.py:161: with precomputed_Z and precomputed_thr the cut
+    is made directly, the same labels as vbx_tpu's, and no O(N^2) host
+    pass runs (monkeypatched to raise)."""
+    from vbx_tpu_torch.clustering import linkage_dot_avg
+
+    x = _centers_x(9, 4, 600, 16)
+    xn = x / np.linalg.norm(x, axis=1, keepdims=True)
+    Z = linkage_dot_avg(xn)
+    thr = tcal.two_gmm_calib_lin_binned((xn @ xn.T).reshape(-1))
+    want = tahc.ahc_labels(x, 0.0)
+    monkeypatch.setattr(tahc, "_blocked_cosine_condensed_and_thr",
+                        lambda *a, **k: (_ for _ in ()).throw(
+                            AssertionError("host pass ran")))
+    monkeypatch.setattr(tahc, "_BLOCKED_MIN_N", 512)
+    got = tahc.ahc_labels(x, 0.0, precomputed_Z=Z, precomputed_thr=thr)
+    np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(jahc, "_BLOCKED_MIN_N", 512)
+    np.testing.assert_array_equal(
+        got, jahc.ahc_labels(x, 0.0, precomputed_Z=Z, precomputed_thr=thr))
+
+
+def test_precomputed_z_without_thr_routes_the_threshold(monkeypatch):
+    """precomputed_Z alone: the threshold comes from the host blocked sweep
+    below _DEVICE_CALIB_MIN_N (and on a device that is not CUDA)."""
+    from vbx_tpu_torch.clustering import linkage_dot_avg
+
+    x = _centers_x(10, 5, 700, 16)
+    xn = x / np.linalg.norm(x, axis=1, keepdims=True)
+    Z = linkage_dot_avg(xn)
+    monkeypatch.setattr(tahc, "_BLOCKED_MIN_N", 512)
+    monkeypatch.setattr(jahc, "_BLOCKED_MIN_N", 512)
+    got = tahc.ahc_labels(x, 0.0, precomputed_Z=Z, device="cpu")
+    np.testing.assert_array_equal(got, tahc.ahc_labels(x, 0.0))
+    np.testing.assert_array_equal(got,
+                                  jahc.ahc_labels(x, 0.0, precomputed_Z=Z))
+
+
+def test_long_n_device_route_matches_host_and_vbx_tpu(monkeypatch):
+    """tests/test_ahc.py:186: compute_backend='device' at N >= the blocked
+    cutoff (the streamed calibration sweep, here on the CPU, and the native
+    host linkage, since the device is not CUDA) gives the host chain's
+    labels, and vbx_tpu's 'device' route's; 'auto' on the CPU is host. The
+    cutoff is lowered in both packages to keep the CPU sweeps short."""
+    monkeypatch.setattr(tahc, "_BLOCKED_MIN_N", 1024)
+    monkeypatch.setattr(jahc, "_BLOCKED_MIN_N", 1024)
+    x = _centers_x(5, 5, 1300, 16)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    host = tahc.ahc_labels(x, 0.0, compute_backend="host")
+    dev = tahc.ahc_labels(x, 0.0, compute_backend="device", device="cpu")
+    auto = tahc.ahc_labels(x, 0.0, compute_backend="auto", device="cpu")
+    np.testing.assert_array_equal(dev, host)
+    np.testing.assert_array_equal(auto, host)
+    np.testing.assert_array_equal(
+        dev, jahc.ahc_labels(x, 0.0, compute_backend="device"))
+
+
+def test_short_device_route_matches_vbx_tpu():
+    """tests/test_ahc.py:337: 'device' below the blocked cutoff scores on
+    the device (float32 here; vbx_tpu's CPU backend scores at its x64
+    dtype) and calibrates in float64 on the host: on well-separated
+    speakers the same 4-way partition as the host chain and vbx_tpu's
+    'device' route."""
+    import itertools
+
+    rng = np.random.default_rng(5)
+    cents = rng.standard_normal((4, 32)) * 5
+    x = cents[np.repeat(np.arange(4), 50)] \
+        + 0.1 * rng.standard_normal((200, 32))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    host = tahc.ahc_labels(x, -0.015)
+    dev = tahc.ahc_labels(x, -0.015, compute_backend="device", device="cpu")
+    ref = jahc.ahc_labels(x, -0.015, compute_backend="device")
+    assert host.max() == dev.max() == ref.max() == 3
+    for other in (host, ref):
+        for perm in itertools.permutations(range(4)):
+            if np.all(np.array(perm)[other] == dev):
+                break
+        else:
+            raise AssertionError("the device route changed the partition")
+
+
+def test_auto_routes_mid_n_linkage_to_the_walk(monkeypatch):
+    """tests/test_ahc.py:420: under 'auto' on a CUDA device (the predicate
+    patched: there is no card here) the band [6144, 16384) runs the host
+    threshold and the device walk (a spy, delegating to the host chain);
+    explicit 'host' never calls it, nor does a recording below the band —
+    the routes vbx_tpu takes."""
+    from vbx_tpu_torch.clustering import device as tdev
+    from vbx_tpu_torch.clustering import linkage_dot_avg
+
+    calls = []
+
+    def spy(xn, device=None):
+        calls.append(len(xn))
+        return linkage_dot_avg(xn)
+
+    monkeypatch.setattr(tdev, "linkage_dot_avg_device", spy)
+    monkeypatch.setattr(tahc, "_on_cuda", lambda device: True)
+    x = _centers_x(0, 6, 6500, 32, scale=1.0)
+    lab_auto = tahc.ahc_labels(x, 0.0, compute_backend="auto")
+    assert calls == [6500]
+    lab_host = tahc.ahc_labels(x, 0.0, compute_backend="host")
+    assert calls == [6500]
+    np.testing.assert_array_equal(lab_auto, lab_host)
+    tahc.ahc_labels(x[:5000], 0.0, compute_backend="auto")
+    assert calls == [6500]
+    # and the cutoffs are vbx_tpu's
+    assert (tahc._BLOCKED_MIN_N, tahc._DEVICE_LINKAGE_MIN_N,
+            tahc._DEVICE_CALIB_MIN_N) == (jahc._BLOCKED_MIN_N,
+                                          jahc._DEVICE_LINKAGE_MIN_N,
+                                          jahc._DEVICE_CALIB_MIN_N)
+
+
+def test_auto_routes_long_n_calibration_to_the_device(monkeypatch):
+    """From _DEVICE_CALIB_MIN_N (patched down) 'auto' on a CUDA device
+    takes the device sweep and the walk; a sweep that fails propagates
+    (no host fallback: only the walk's guard falls back)."""
+    from vbx_tpu_torch.clustering import device as tdev
+    from vbx_tpu_torch.clustering import linkage_dot_avg
+    from vbx_tpu_torch.ops import calibration
+
+    seen = []
+    monkeypatch.setattr(tdev, "linkage_dot_avg_device",
+                        lambda xn, device=None: (seen.append("walk"),
+                                                 linkage_dot_avg(xn))[1])
+    real = calibration.two_gmm_calib_cosine_device
+    monkeypatch.setattr(calibration, "two_gmm_calib_cosine_device",
+                        lambda xn, device=None: (seen.append("sweep"),
+                                                 real(xn, device="cpu"))[1])
+    monkeypatch.setattr(tahc, "_on_cuda", lambda device: True)
+    monkeypatch.setattr(tahc, "_BLOCKED_MIN_N", 256)
+    monkeypatch.setattr(tahc, "_DEVICE_LINKAGE_MIN_N", 300)
+    monkeypatch.setattr(tahc, "_DEVICE_CALIB_MIN_N", 500)
+    x = _centers_x(3, 5, 900, 16)
+    got = tahc.ahc_labels(x, 0.0, compute_backend="auto")
+    assert seen == ["sweep", "walk"]
+    np.testing.assert_array_equal(
+        got, tahc.ahc_labels(x, 0.0, compute_backend="host"))
+
+    def oom(xn, device=None):
+        raise RuntimeError("CUDA out of memory")
+
+    monkeypatch.setattr(calibration, "two_gmm_calib_cosine_device", oom)
+    with pytest.raises(RuntimeError, match="out of memory"):
+        tahc.ahc_labels(x, 0.0, compute_backend="auto")
+
+
+def test_a_cuda_build_error_propagates_instead_of_falling_back(
+        monkeypatch):
+    """A walk kernel that fails to build raises out of the 'auto' route
+    (vbx_tpu would warn and run the host chain)."""
+    from vbx_tpu_torch.clustering import device as tdev
+    from vbx_tpu_torch.ops import cuda_build
+
+    def no_nvcc(*a, **k):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                           "built on this machine")
+
+    monkeypatch.setattr(cuda_build, "library", no_nvcc)
+    # the wrapper takes its kernel path (the tensor's device is not the
+    # CPU), where the build is reached
+    monkeypatch.setattr(tdev, "nn_chain_walk",
+                        lambda sums, ns: tdev._launcher())
+    monkeypatch.setattr(tahc, "_on_cuda", lambda device: True)
+    x = _centers_x(1, 5, 6200, 16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        tahc.ahc_labels(x, 0.0, compute_backend="auto", device="cpu")

@@ -30,10 +30,7 @@ from vbx_tpu_torch.testing import host_threads, synth_models, synth_recording
 PACKAGES = ("engine", "ops", "io", "metrics", "utils", "parallel", "models")
 
 # vbx_tpu names the port does not have yet, and why
-NOT_PORTED = {
-    "two_gmm_calib_lin": "device 2-GMM calibration: ROADMAP.md section 1, "
-                         "item 1",
-}
+NOT_PORTED = {}
 # vbx_tpu name -> the port's: the frame-sharded smoother runs K2, a CUDA
 # kernel, not a Pallas one
 RENAMED = {"forward_backward_blockwise_pallas":
@@ -177,3 +174,29 @@ def test_plda_with_the_device_backend_warns_as_vbx_tpu_does(models):
             np.testing.assert_array_equal(
                 tahc.ahc_labels(x, -0.015, similarity="plda", plda=plda,
                                 compute_backend=backend), lt)
+
+
+def test_serving_exports_vbx_tpus_names():
+    """vbx_tpu_torch.serving has vbx_tpu.serving's public classes (the
+    service, its result and its overload error), the same kinds."""
+    jserv = importlib.import_module("vbx_tpu.serving")
+    tserv = importlib.import_module("vbx_tpu_torch.serving")
+    names = [n for n, v in vars(jserv).items()
+             if not n.startswith("_") and isinstance(v, type)
+             and v.__module__ == "vbx_tpu.serving"]
+    assert sorted(names) == ["DiarizationService", "ServeResult",
+                             "ServiceOverloaded"]
+    for n in names:
+        assert isinstance(getattr(tserv, n), type), n
+    assert issubclass(tserv.ServiceOverloaded, RuntimeError)
+    for meth in ("submit", "diarize", "submit_audio", "diarize_audio",
+                 "warmup", "stats", "close", "from_files"):
+        assert callable(getattr(tserv.DiarizationService, meth)), meth
+
+
+def test_devices_module_has_the_probe_and_the_pick():
+    jdev = importlib.import_module("vbx_tpu.utils.devices")
+    tdev = importlib.import_module("vbx_tpu_torch.utils.devices")
+    for name in ("probe_accelerator", "pick_backend", "main"):
+        assert callable(getattr(jdev, name)) and callable(getattr(tdev,
+                                                                  name))

@@ -480,3 +480,184 @@ def test_extraction_on_a_card_matches_the_cpu():
                                atol=2e-4 * np.abs(cpu).max())
     np.testing.assert_allclose(card[14:], alone, rtol=0,
                                atol=2e-4 * np.abs(alone).max())
+
+
+def _walk_inputs(ns, D, seed, K=8):
+    """[M, max(ns), D] float64 l2-normalized clustered rows (lane m's first
+    ns[m] valid) and each lane's rows."""
+    rng = np.random.default_rng(seed)
+    xs = []
+    for n in ns:
+        centers = rng.standard_normal((K, D))
+        x = centers[rng.integers(0, K, n)] + 0.5 * rng.standard_normal((n, D))
+        xs.append(x / np.linalg.norm(x, axis=1, keepdims=True))
+    sums = np.zeros((len(ns), max(ns), D))
+    for m, x in enumerate(xs):
+        sums[m, :len(x)] = x
+    return torch.from_numpy(sums), xs
+
+
+def _labels_at_cuts(Z, Zref, n, qs=(0.3, 0.7)):
+    """Flat labels of Z and of the reference Zref at cuts placed at
+    Zref's merge-gap midpoints (tests/test_clustering.py's contract)."""
+    from vbx_tpu_torch.clustering import fcluster_by_distance
+    adjust = abs(Zref[:, 2].min())
+    ds = np.sort(Zref[:, 2])
+    out = []
+    for q in qs:
+        i = int(q * (n - 1))
+        cut = 0.5 * (ds[i] + ds[i + 1]) + adjust
+        out.append(tuple(fcluster_by_distance(
+            np.c_[z[:, :2], z[:, 2] + adjust, z[:, 3]], cut)
+            for z in (Z, Zref)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ns,D", [((2,), 4), ((3, 1, 0), 16), ((517,), 16),
+                                  ((1024, 300), 128), ((700,), 33),
+                                  ((2048,), 256)])
+def test_nn_chain_kernel_matches_plain_twin(ns, D):
+    """The walk kernel against its plain twin on the card: sorted merge
+    distances within 1e-12 (both float64; the dots are summed in other
+    orders), labels equal at two gap-midpoint cuts, every merge covering
+    N at the end, no lane bad, one launch a call; where the two made the
+    same merges in the same order, the same steps and scanned clusters."""
+    _need_card()
+    from vbx_tpu_torch.clustering import device as cdev
+
+    sums, xs = _walk_inputs(ns, D, seed=len(ns) * 7 + D)
+    before = cdev.nn_chain_walk.launches
+    k_out = cdev.nn_chain_walk(sums.cuda(), ns)
+    assert cdev.nn_chain_walk.launches == before + 1
+    p_out = cdev.nn_chain_walk_plain(sums.cuda(), ns)
+    torch.cuda.synchronize()
+    assert not k_out[3].any() and not p_out[3].any()
+    for m, n in enumerate(ns):
+        if n < 2:
+            continue
+        Zk, Zp = (cdev._finalize(o[0][m, :n - 1].cpu().numpy(),
+                                 o[1][m, :n - 1].cpu().numpy(),
+                                 o[2][m, :n - 1].cpu().numpy(), n)
+                  for o in (k_out, p_out))
+        assert np.abs(np.sort(Zk[:, 2]) - np.sort(Zp[:, 2])).max() < 1e-12
+        assert Zk[-1, 3] == n
+        if all(torch.equal(k_out[j][m].cpu(), p_out[j][m].cpu())
+               for j in (0, 1)):
+            # the same merges in the same order: the same steps and scans
+            assert int(k_out[4][m]) == int(p_out[4][m])
+            assert int(k_out[5][m]) == int(p_out[5][m])
+        if n > 3:
+            for lk, lp in _labels_at_cuts(Zk, Zp, n):
+                np.testing.assert_array_equal(lk, lp)
+
+
+@pytest.mark.gpu
+def test_nn_chain_kernel_lane_does_not_depend_on_its_batch():
+    """A lane's merges and distances are bit-equal alone, among other
+    lanes (another order, other sizes), and at another grid size."""
+    _need_card()
+    from vbx_tpu_torch.clustering import device as cdev
+
+    ns = (900, 1500, 333, 1200)
+    sums, _ = _walk_inputs(ns, 128, seed=3)
+    sums = sums.cuda()
+    full = cdev.nn_chain_walk(sums, ns)
+    other_grid = cdev.nn_chain_walk(sums, ns, blocks_per_sm=1)
+    for m, n in enumerate(ns):
+        alone = cdev.nn_chain_walk(sums[m:m + 1, :n].contiguous(), [n])
+        rev = cdev.nn_chain_walk(sums.flip(0).contiguous(), ns[::-1])
+        assert int(full[5][m]) == int(alone[5][0])
+        for j in range(3):
+            assert torch.equal(full[j][m, :n - 1], alone[j][0, :n - 1])
+            assert torch.equal(full[j][m, :n - 1],
+                               rev[j][len(ns) - 1 - m, :n - 1])
+            assert torch.equal(full[j][m, :n - 1],
+                               other_grid[j][m, :n - 1])
+    assert not full[3].any()
+
+
+@pytest.mark.gpu
+def test_linkage_on_a_card_matches_the_host_chain():
+    """linkage_dot_avg_device on the card against the float64 host chain:
+    sorted distances within 1e-12 (tests/test_clustering.py's contract is
+    1e-6, for a float32 walk), the host's merges, labels equal at
+    gap-midpoint cuts; and the 'auto' AHC route launches the walk and
+    gives the host route's labels."""
+    _need_card()
+    from vbx_tpu_torch.clustering import device as cdev, linkage_dot_avg
+    from vbx_tpu_torch.engine import ahc
+
+    _, xs = _walk_inputs((6500,), 64, seed=5, K=6)
+    xn = xs[0]
+    Zh = linkage_dot_avg(xn)
+    Zd = cdev.linkage_dot_avg_device(xn, device="cuda")
+    assert np.abs(np.sort(Zh[:, 2]) - np.sort(Zd[:, 2])).max() < 1e-12
+    np.testing.assert_array_equal(Zd[:, :2], Zh[:, :2])
+    for ld, lh in _labels_at_cuts(Zd, Zh, len(xn)):
+        np.testing.assert_array_equal(ld, lh)
+    before = cdev.nn_chain_walk.launches
+    auto = ahc.ahc_labels(xn, 0.0, compute_backend="auto", device="cuda")
+    assert cdev.nn_chain_walk.launches == before + 1
+    host = ahc.ahc_labels(xn, 0.0, compute_backend="host", device="cuda")
+    np.testing.assert_array_equal(auto, host)
+
+
+@pytest.mark.gpu
+def test_cosine_sweep_on_a_card_matches_the_host():
+    """two_gmm_calib_cosine_device and _batched on the card against the
+    host float64 blocked sweep, tests/test_ahc.py's bar (5e-5)."""
+    _need_card()
+    from vbx_tpu_torch.engine.ahc import _blocked_cosine_condensed_and_thr
+    from vbx_tpu_torch.ops.calibration import (
+        two_gmm_calib_cosine_device, two_gmm_calib_cosine_device_batched)
+
+    _, xs = _walk_inputs((4500, 2100, 900), 24, seed=11, K=4)
+    thr_b = two_gmm_calib_cosine_device_batched(xs, device="cuda")
+    for m, xn in enumerate(xs):
+        _, thr_h = _blocked_cosine_condensed_and_thr(xn,
+                                                     want_condensed=False)
+        thr_d = two_gmm_calib_cosine_device(xn, device="cuda")
+        assert abs(thr_d - thr_h) < 5e-5, (m, thr_d, thr_h)
+        assert abs(thr_b[m] - thr_h) < 5e-5, (m, thr_b[m], thr_h)
+
+
+@pytest.mark.gpu
+def test_service_on_a_card_matches_the_offline_pipeline(tmp_path):
+    """DiarizationService(device='cuda') on a small synthetic corpus: the
+    same labels as diarize_ark on the card (a recording's result does not
+    depend on its batch), K1 launched."""
+    _need_card()
+    from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.engine.pipeline import diarize_ark
+    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.segments import read_xvector_timing_dict
+    from vbx_tpu_torch.serving import DiarizationService
+    from vbx_tpu_torch.testing import write_corpus
+
+    c = write_corpus(str(tmp_path), 1, [300, 520, 700, 410, 260, 900],
+                     [2, 4, 3, 5, 2, 4])
+    cfg = get_preset("example")
+    off = diarize_ark(c["ark"], c["segments"], str(tmp_path / "off"), cfg,
+                      c["plda"], c["transform"], fb_impl="pallas",
+                      verbose=False, device="cuda")
+    segs = read_xvector_timing_dict(c["segments"])
+    before = fb_kernel.fb_fused_sb.launches
+    with DiarizationService.from_files(cfg, c["plda"], c["transform"],
+                                       device="cuda",
+                                       batch_window_ms=200.0) as svc:
+        assert svc._fb_impl is None
+        futs = {rec: svc.submit(rec, x, segs[rec][1])
+                for rec, _, x in group_by_recording(iter_vec_ark(c["ark"]))}
+        res = {rec: f.result(timeout=300) for rec, f in futs.items()}
+    with DiarizationService.from_files(cfg, c["plda"], c["transform"],
+                                       device="cuda", fb_impl="pallas",
+                                       batch_window_ms=200.0) as svc:
+        futs = {rec: svc.submit(rec, x, segs[rec][1])
+                for rec, _, x in group_by_recording(iter_vec_ark(c["ark"]))}
+        res_k = {rec: f.result(timeout=300) for rec, f in futs.items()}
+    assert fb_kernel.fb_fused_sb.launches > before
+    for rec in off:
+        np.testing.assert_array_equal(res_k[rec].labels1st,
+                                      off[rec].labels1st)
+        assert res[rec].n_speakers >= 1

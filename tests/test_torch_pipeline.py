@@ -205,3 +205,130 @@ def test_codecs_write_identical_bytes(tmp_path, corpus):
     assert list(dt) == list(dj)
     for k in dt:
         np.testing.assert_array_equal(dt[k][1], dj[k][1])
+
+
+def _prestage_patches(monkeypatch):
+    """A CUDA device (the predicate patched: there is no card here) and the
+    cutoffs lowered so the small corpus is 'AMI-length'; the walk and the
+    sweeps run their CPU forms."""
+    from vbx_tpu_torch.engine import ahc as tahc
+    monkeypatch.setattr(tahc, "_on_cuda", lambda device: True)
+    monkeypatch.setattr(tahc, "_BLOCKED_MIN_N", 256)
+    monkeypatch.setattr(tahc, "_DEVICE_LINKAGE_MIN_N", 300)
+
+
+PRE_LENGTHS = [400, 650, 320, 900, 200]
+PRE_SPEAKERS = [3, 4, 2, 5, 2]
+
+
+@pytest.fixture(scope="module")
+def pre_corpus(tmp_path_factory):
+    return write_corpus(str(tmp_path_factory.mktemp("pre")), 3, PRE_LENGTHS,
+                        PRE_SPEAKERS)
+
+
+def _stages(runlog):
+    import json
+    return [json.loads(line) for line in open(runlog)
+            if json.loads(line)["event"] == "stages"][-1]
+
+
+def test_corpus_pre_stage_matches_the_per_recording_route(
+        pre_corpus, tmp_path, monkeypatch):
+    """The batched path's pre-stage (vbx_tpu/engine/pipeline.py:508-599):
+    the 4 eligible recordings (N >= the cutoff) are linked in size groups
+    within 2x of their smallest (320, 400 | 650, 900), one walk and one
+    batched sweep a group; the RTTMs equal the per-recording route's
+    (the same 'auto' routes with the pre-stage off), and the stage log
+    says so."""
+    from vbx_tpu_torch.clustering import device as tdev
+    from vbx_tpu_torch.ops import calibration
+
+    _prestage_patches(monkeypatch)
+    groups = []
+    real = tdev.linkage_dot_avg_device_batched
+
+    def spy(xns, device=None):
+        groups.append(sorted(len(x) for x in xns))
+        return real(xns, device=device)
+
+    monkeypatch.setattr(tdev, "linkage_dot_avg_device_batched", spy)
+    sweeps = []
+    real_sweep = calibration.two_gmm_calib_cosine_device_batched
+    monkeypatch.setattr(
+        calibration, "two_gmm_calib_cosine_device_batched",
+        lambda xns, device=None: (sweeps.append(len(xns)),
+                                  real_sweep(xns, device=device))[1])
+    runlog = str(tmp_path / "run.jsonl")
+    out = tpipe.diarize_ark(pre_corpus["ark"], pre_corpus["segments"],
+                            str(tmp_path / "pre"), tpreset("example"),
+                            *_models(pre_corpus), verbose=False,
+                            device="cpu", runlog_path=runlog)
+    assert sorted(groups) == [[320, 400], [650, 900]]
+    assert sweeps == [2, 2]
+    st = _stages(runlog)
+    assert st["pre_linkage_recordings"] == 4 and st["pre_linkage_s"] >= 0
+    monkeypatch.setattr(tpipe, "_pre_stage", lambda diar, recs: {})
+    ref = tpipe.diarize_ark(pre_corpus["ark"], pre_corpus["segments"],
+                            str(tmp_path / "per"), tpreset("example"),
+                            *_models(pre_corpus), verbose=False,
+                            device="cpu", runlog_path=str(tmp_path / "r2"))
+    assert "pre_linkage_recordings" not in _stages(str(tmp_path / "r2"))
+    assert len(groups) == 2 + 4                 # the per-recording walks
+    for f in sorted(os.listdir(tmp_path / "per")):
+        assert filecmp.cmp(tmp_path / "pre" / f, tmp_path / "per" / f,
+                           shallow=False), f
+    for rec in out:
+        np.testing.assert_array_equal(out[rec].labels1st,
+                                      ref[rec].labels1st)
+
+
+def test_corpus_pre_stage_guard_trip_falls_back_per_recording(
+        pre_corpus, tmp_path, monkeypatch):
+    """A group whose batched walk trips the reducibility guard: every
+    recording not linked yet keeps its float64 transform and takes the
+    per-recording route (whose walk trips too and falls back to the host
+    chain, with vbx_tpu's warnings); the RTTMs are the host route's."""
+    from vbx_tpu_torch.clustering import device as tdev
+
+    _prestage_patches(monkeypatch)
+
+    def tripping(sums, ns, blocks_per_sm=0):
+        out = tdev.nn_chain_walk_plain(sums, ns)
+        return out[:3] + (torch.ones_like(out[3]),) + out[4:]
+
+    monkeypatch.setattr(tdev, "nn_chain_walk", tripping)
+    runlog = str(tmp_path / "run.jsonl")
+    with pytest.warns(UserWarning, match="batched device linkage failed"):
+        tpipe.diarize_ark(pre_corpus["ark"], pre_corpus["segments"],
+                          str(tmp_path / "pre"), tpreset("example"),
+                          *_models(pre_corpus), verbose=False,
+                          device="cpu", runlog_path=runlog)
+    assert _stages(runlog)["pre_linkage_recordings"] == 0
+    cfg = tpreset("example")
+    cfg = cfg.replace(ahc=dataclasses.replace(cfg.ahc,
+                                              compute_backend="host"))
+    tpipe.diarize_ark(pre_corpus["ark"], pre_corpus["segments"],
+                      str(tmp_path / "host"), cfg, *_models(pre_corpus),
+                      verbose=False, device="cpu")
+    for f in sorted(os.listdir(tmp_path / "host")):
+        assert filecmp.cmp(tmp_path / "pre" / f, tmp_path / "host" / f,
+                           shallow=False), f
+
+
+def test_initial_labels_takes_the_precomputed_linkage(pre_corpus):
+    """Diarizer.initial_labels(x, precomputed_Z=, precomputed_thr=) cuts
+    the given linkage at the given threshold, as vbx_tpu's does."""
+    from vbx_tpu_torch.clustering import linkage_dot_avg
+
+    plda, transform = pre_corpus["models"]
+    dt = tpipe.Diarizer(tpreset("example"), plda, transform, device="cpu")
+    dj = jpipe.Diarizer(jpreset("example"), plda, transform)
+    x_raw = np.random.default_rng(4).standard_normal((4500, 256))
+    x = dt.transform_xvectors(x_raw)
+    xn = x / np.linalg.norm(x, axis=1, keepdims=True)
+    Z = linkage_dot_avg(xn)
+    for thr in (0.05, 0.3):
+        np.testing.assert_array_equal(
+            dt.initial_labels(x, precomputed_Z=Z, precomputed_thr=thr),
+            dj.initial_labels(x, precomputed_Z=Z, precomputed_thr=thr))

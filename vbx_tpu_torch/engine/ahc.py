@@ -1,22 +1,36 @@
-"""AHC initialization, host route (port of vbx_tpu.engine.ahc).
+"""AHC initialization (port of vbx_tpu.engine.ahc).
 
 Pipeline parity with the reference diarization CLI (vbhmm.py:131-146):
 similarity matrix -> utterance-specific calibration threshold -> condensed
 negative-similarity matrix -> average linkage -> distance cut at
 -(thr + threshold_bias), with the reference's nonnegative-shift ('adjust')
-transformation of the linkage distances. Everything runs in float64 on the
-host, through the same native linkage as vbx_tpu.
+transformation of the linkage distances.
 
-Long cosine recordings (N >= _BLOCKED_MIN_N) never materialize the N x N
-matrix: the threshold comes from a streamed blocked histogram sweep and the
-linkage from the O(N*D)-memory cluster-sums identity
-(clustering.linkage_dot_avg).
+Routes, as vbx_tpu's, with `device` in the place of jax.default_backend():
+- 'host' (and every short recording under 'auto'): float64 on the host,
+  through the same native linkage as vbx_tpu. Long cosine recordings
+  (N >= _BLOCKED_MIN_N) never materialize the N x N matrix: the threshold
+  comes from a streamed blocked histogram sweep and the linkage from the
+  O(N*D)-memory cluster-sums identity (clustering.linkage_dot_avg).
+- 'auto' on a CUDA device: from _DEVICE_LINKAGE_MIN_N the NN-chain walk
+  runs on the card (clustering.device, csrc/nn_chain.cu) with the host
+  threshold; from _DEVICE_CALIB_MIN_N the calibration sweep runs there too
+  ('device' below).
+- 'device', N >= _BLOCKED_MIN_N: the streamed calibration sweep on the
+  device (ops.calibration.two_gmm_calib_cosine_device) and, on a CUDA
+  device, the walk on the card; elsewhere the native host chain.
+- 'device', N < _BLOCKED_MIN_N: cosine scores on the device in float32,
+  calibrated in float64 on the host.
+- precomputed_Z (the corpus pre-stage's batched walk): the cut is made on
+  it, with precomputed_thr if given, else the threshold routed as 'auto'.
 
-vbx_tpu also has accelerator routes: compute_backend='device', and 'auto'
-with an accelerator attached at N >= 6144 (device NN-chain walk) or
-N >= 16384 (device calibration sweep). The port has no device AHC yet, so
-those cases run this host chain; by the contract in tests/test_clustering.py
-the device walk gives the same labels as the host chain.
+Fallback, narrowed on purpose: vbx_tpu catches every exception of its
+device walk and sweep and warns. The port falls back to the host float64
+chain, with vbx_tpu's warning, only when the walk's reducibility guard
+trips (clustering.device.ReducibilityError: a near-tie that broke the
+chain's invariant). A kernel that fails to build or launch, a CUDA error or an
+out-of-memory error propagates: a route that dropped to the host on its own
+would hide the device.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import numpy as np
 from vbx_tpu_torch.clustering import (
     fcluster_by_distance, hist_moments, linkage, linkage_dot_avg,
     squareform_condensed)
+from vbx_tpu_torch.device import DeviceLike, resolve_device
 from vbx_tpu_torch.ops.calibration import (
     two_gmm_calib_from_moments, two_gmm_calib_lin_binned)
 from vbx_tpu_torch.ops.similarity import kaldi_plda_scoring_dense
@@ -36,9 +51,46 @@ from vbx_tpu_torch.ops.similarity import kaldi_plda_scoring_dense
 # Blocked path cutoff: below this the full N x N materialization is cheap
 # (the calibration over it is histogram-EM for N^2 > 2^18, exact below).
 _BLOCKED_MIN_N = 4096
+# 'auto' device-calibration cutoff, vbx_tpu's (measured on its TPU host).
+_DEVICE_CALIB_MIN_N = 16384
+# 'auto' device-linkage cutoff, vbx_tpu's (measured on its TPU host).
+_DEVICE_LINKAGE_MIN_N = 6144
 # Fixed-range [-1, 1] bins for the blocked path's streamed histogram (2^16:
 # bin width 3e-5, threshold error ~1e-9; see calibration.adaptive_bins).
 _COSINE_BINS = 1 << 16
+
+
+def _on_cuda(device: DeviceLike) -> bool:
+    """Whether the accelerator routes apply: the resolved device is a CUDA
+    card (the counterpart of vbx_tpu's jax.default_backend() != 'cpu')."""
+    return resolve_device(device).type == "cuda"
+
+
+def _normalized(x: np.ndarray) -> np.ndarray:
+    x64 = np.asarray(x, dtype=np.float64)
+    return x64 / (np.sqrt((x64 * x64).sum(axis=1, keepdims=True)) + 1e-32)
+
+
+def _try_device_linkage(xn: np.ndarray, device: DeviceLike):
+    """The NN-chain walk on the card, or None when the device is not CUDA
+    or the walk's reducibility guard trips (the caller then runs the host
+    float64 chain; `fallbacks` counts those). One definition keeps the
+    long-N 'device' branch and the mid-N 'auto' branch in step. Any other
+    failure propagates."""
+    if not _on_cuda(device):
+        return None
+    from vbx_tpu_torch.clustering import device as cdev
+    try:
+        return cdev.linkage_dot_avg_device(xn, device=device)
+    except cdev.ReducibilityError as exc:
+        _try_device_linkage.fallbacks += 1
+        warnings.warn(
+            f"device linkage failed ({exc!r}); falling back to the host "
+            f"NN-chain", stacklevel=3)
+        return None
+
+
+_try_device_linkage.fallbacks = 0   # guard trips since the caller reset it
 
 
 def ahc_labels(
@@ -50,16 +102,19 @@ def ahc_labels(
     pca_dim: Optional[int] = None,
     linkage_backend: Optional[str] = None,
     compute_backend: str = "auto",
+    precomputed_Z: Optional[np.ndarray] = None,
+    precomputed_thr: Optional[float] = None,
+    device: DeviceLike = None,
 ) -> np.ndarray:
     """Cluster x-vectors; returns 0-based integer labels [N].
 
     x is the transformed (PLDA-space, length-normalized) x-vector matrix.
     `similarity` selects cosine (reference default, vbhmm.py:135) or the
     Kaldi-equivalent dense PLDA scoring (diarization_lib.py:59-93).
-    `compute_backend` is validated like vbx_tpu's ('auto', 'host',
-    'device'); every value runs the float64 host chain here (see the
-    module docstring), and 'device' with PLDA scoring warns, as vbx_tpu's
-    does. `linkage_backend` forces 'native' or 'scipy'.
+    `compute_backend` is 'auto', 'host' or 'device' (module docstring);
+    `device` ('cuda' unless the caller passes another) is resolved only
+    where a route needs it, so 'host' and short 'auto' recordings never
+    touch it. `linkage_backend` forces 'native' or 'scipy'.
     """
     if compute_backend not in ("auto", "host", "device"):
         raise ValueError(
@@ -70,22 +125,79 @@ def ahc_labels(
         return np.zeros(1, dtype=np.int32)
 
     condensed = thr = Z = None
-    if similarity == "cosine":
-        x64 = np.asarray(x, dtype=np.float64)
-        xn = x64 / (np.sqrt((x64 * x64).sum(axis=1, keepdims=True)) + 1e-32)
-        if n >= _BLOCKED_MIN_N:
-            if linkage_backend != "scipy":
-                try:
-                    Z = linkage_dot_avg(xn, backend="native")
-                except RuntimeError:   # native library unavailable
-                    Z = None
-                if Z is not None:
-                    _, thr = _blocked_cosine_condensed_and_thr(
-                        xn, want_condensed=False)
-            if Z is None:
-                condensed, thr = _blocked_cosine_condensed_and_thr(xn)
+    requested_backend = compute_backend
+    if (precomputed_Z is not None and similarity == "cosine"
+            and n >= _BLOCKED_MIN_N):
+        # corpus pre-stage (engine.pipeline): this recording's walk ran in
+        # one batched device call; its threshold too, when given
+        if precomputed_thr is not None:
+            thr = float(precomputed_thr)
         else:
-            scr_mx = xn @ xn.T
+            xn = _normalized(x)
+            if n >= _DEVICE_CALIB_MIN_N and _on_cuda(device):
+                from vbx_tpu_torch.ops.calibration import (
+                    two_gmm_calib_cosine_device)
+                thr = two_gmm_calib_cosine_device(xn, device=device)
+            else:
+                _, thr = _blocked_cosine_condensed_and_thr(
+                    xn, want_condensed=False)
+        Z = precomputed_Z
+    elif similarity == "cosine":
+        long_n = n >= _BLOCKED_MIN_N
+        if compute_backend == "auto":
+            compute_backend = ("device" if n >= _DEVICE_CALIB_MIN_N
+                               and _on_cuda(device) else "host")
+        if compute_backend == "device" and long_n:
+            # the calibration sweep streams through the device (only the
+            # block sums cross to the host); the walk runs on the card
+            xn = _normalized(x)
+            from vbx_tpu_torch.ops.calibration import (
+                two_gmm_calib_cosine_device)
+            thr = two_gmm_calib_cosine_device(xn, device=device)
+            if linkage_backend != "scipy":
+                Z = _try_device_linkage(xn, device)
+                if Z is None:
+                    try:
+                        Z = linkage_dot_avg(xn, backend="native")
+                    except RuntimeError as exc:
+                        warnings.warn(
+                            f"native linkage unavailable ({exc}); device "
+                            f"threshold + condensed host linkage",
+                            stacklevel=2)
+            if Z is None:
+                condensed, _ = _blocked_cosine_condensed_and_thr(
+                    xn, want_thr=False)
+        if compute_backend == "host":
+            xn = _normalized(x)
+            if long_n:
+                if linkage_backend != "scipy":
+                    if (requested_backend == "auto"
+                            and n >= _DEVICE_LINKAGE_MIN_N):
+                        # 'auto' mid-N band [6144, 16384): the threshold
+                        # stays on the host, the walk goes to the card
+                        Z = _try_device_linkage(xn, device)
+                    if Z is None:
+                        try:
+                            Z = linkage_dot_avg(xn, backend="native")
+                        except RuntimeError:   # native library unavailable
+                            Z = None
+                    if Z is not None:
+                        _, thr = _blocked_cosine_condensed_and_thr(
+                            xn, want_condensed=False)
+                if Z is None:
+                    condensed, thr = _blocked_cosine_condensed_and_thr(xn)
+            else:
+                scr_mx = xn @ xn.T
+        elif compute_backend == "device" and not long_n:
+            # float32 scores on the device, float64 calibration on the host
+            import torch
+
+            from vbx_tpu_torch.device import full_fp32_matmuls
+            from vbx_tpu_torch.ops.similarity import cos_similarity
+            xt = torch.as_tensor(np.asarray(x, np.float32),
+                                 device=resolve_device(device))
+            with full_fp32_matmuls():
+                scr_mx = cos_similarity(xt).cpu().numpy().astype(np.float64)
     elif similarity == "plda":
         if plda is None:
             raise ValueError("similarity='plda' requires a plda model")
@@ -118,8 +230,9 @@ def ahc_labels(
 
 
 def _blocked_cosine_condensed_and_thr(
-        xn: np.ndarray, blk: int = 512, want_condensed: bool = True
-        ) -> Tuple[Optional[np.ndarray], float]:
+        xn: np.ndarray, blk: int = 512, want_condensed: bool = True,
+        want_thr: bool = True
+        ) -> Tuple[Optional[np.ndarray], Optional[float]]:
     """Long-recording cosine AHC front half without materializing N x N:
     stream row blocks of xn @ xn.T, accumulating (a) the full-matrix score
     histogram moments for the binned 2-GMM calibration (reference parity:
@@ -127,7 +240,8 @@ def _blocked_cosine_condensed_and_thr(
     both triangles) and (b) the negated upper triangle into the condensed
     distance vector. One pass over the N^2 scores, peak memory O(blk * N).
     want_condensed=False skips (b) — the linkage_dot_avg path needs only
-    the threshold, so the O(N^2) buffer is never allocated.
+    the threshold, so the O(N^2) buffer is never allocated. want_thr=False
+    skips (a): the device route already holds the threshold.
 
     Bins are fixed to the cosine range [-1, 1] (scores are exactly bounded
     after l2 normalization); with exact per-bin moments the threshold
@@ -170,11 +284,14 @@ def _blocked_cosine_condensed_and_thr(
         if mask is None or mask.shape != R.shape:
             mask = np.arange(R.shape[1])[None, :] > np.arange(b)[:, None]
         upper = R[mask]
-        hist(upper)
+        if want_thr:
+            hist(upper)
         if want_condensed:
             np.negative(upper, out=cond[o:o + upper.size])
             o += upper.size
         diag[i0:i1] = np.diagonal(St)
+    if not want_thr:
+        return cond, None
     cnt *= 2.0
     ssum *= 2.0
     s2sum *= 2.0

@@ -11,10 +11,13 @@ bucket's chunks through the batched engine as they fill.
 (parallel.vbx_sharded): recordings over the mesh's 'dp' rows, the frames of
 each recording over its 'sp' shards.
 
-Not ported yet: `shard_over_hosts`, and the corpus pre-stage that batches
-mid-N recordings' NN-chain walks and calibrations on the accelerator
-(vbx_tpu/engine/pipeline.py:508-599). Those recordings run the float64
-host init chain here, which gives the same labels (engine.ahc).
+On a CUDA device the batched path first runs a corpus pre-stage: the
+recordings the 'auto' AHC route sends to the card (N >=
+_DEVICE_LINKAGE_MIN_N) have their NN-chain walks and calibration sweeps
+batched, one walk launch and one sweep per size group
+(vbx_tpu/engine/pipeline.py:508-599).
+
+Not ported yet: `shard_over_hosts`.
 """
 
 from __future__ import annotations
@@ -172,7 +175,14 @@ class Diarizer:
         y /= np.sqrt((y * y).sum(axis=1, keepdims=True))
         return y
 
-    def initial_labels(self, x: np.ndarray, seed: int = 0) -> np.ndarray:
+    def initial_labels(self, x: np.ndarray, seed: int = 0,
+                       precomputed_Z: Optional[np.ndarray] = None,
+                       precomputed_thr: Optional[float] = None
+                       ) -> np.ndarray:
+        """Initial speaker labels: AHC (on this Diarizer's device where the
+        AHC routes use one, engine.ahc) or random_<K>. precomputed_Z /
+        precomputed_thr carry the corpus pre-stage's batched walk and
+        calibration."""
         kind, n_rand, _ = _parse_init(self.config.init)
         ahc_cfg = self.config.ahc
         if kind == "AHC":
@@ -190,7 +200,10 @@ class Diarizer:
                 similarity=ahc_cfg.similarity,
                 plda=self.raw_plda,
                 target_energy=ahc_cfg.target_energy,
-                compute_backend=ahc_cfg.compute_backend)
+                compute_backend=ahc_cfg.compute_backend,
+                precomputed_Z=precomputed_Z,
+                precomputed_thr=precomputed_thr,
+                device=self.device)
         return random_labels(len(x), n_rand, seed=seed)
 
     def vb_inputs(self, x: np.ndarray, labels: np.ndarray):
@@ -445,6 +458,72 @@ def _warn_failed(rec: str, exc: Exception, runlog=None,
                       "error": f"{type(exc).__name__}: {exc}"})
 
 
+def _pre_stage(diar: Diarizer, recs) -> Dict[int, tuple]:
+    """The corpus pre-stage: {recording index: (f64 transformed x, Z,
+    threshold)} for the recordings whose AHC the 'auto' route would send to
+    the card's walk (AHC init, cosine, 'auto', a CUDA device, N >=
+    _DEVICE_LINKAGE_MIN_N, not over fallback_n), when there are at least
+    two. Their walks and calibration sweeps run batched: size-aware groups,
+    each within 2x of its smallest recording, one walk launch and one
+    batched sweep a group. The labels are the per-recording route's (the
+    cut stays per recording). When a group's walk trips the reducibility
+    guard, every recording not linked yet keeps its transform with Z None
+    and takes the per-recording route; any other failure propagates."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from vbx_tpu_torch.clustering import device as cdev
+    from vbx_tpu_torch.engine import ahc
+    from vbx_tpu_torch.ops.calibration import (
+        two_gmm_calib_cosine_device_batched)
+
+    cfg = diar.config
+    kind, _, _ = _parse_init(cfg.init)
+    if not (kind == "AHC" and cfg.ahc.similarity == "cosine"
+            and cfg.ahc.compute_backend == "auto"
+            and ahc._on_cuda(diar.device)):
+        return {}
+    elig = [i for i in range(len(recs))
+            if len(recs[i][2]) >= ahc._DEVICE_LINKAGE_MIN_N
+            and not (0 < cfg.ahc.fallback_n < len(recs[i][2]))]
+    if len(elig) < 2:
+        return {}
+    xs: Dict[int, np.ndarray] = {}
+    with ThreadPoolExecutor(max_workers=min(8, len(elig))) as pool:
+        for i, fut in [(i, pool.submit(diar.transform_xvectors, recs[i][2]))
+                       for i in elig]:
+            try:
+                xs[i] = fut.result()
+            except Exception:   # noqa: BLE001 — prep() re-runs and
+                pass            # isolates the failure
+    # a batched walk runs every lane to the group's longest, so one hour
+    # must not hold up a dozen 8k-meeting lanes: greedy groups within 2x
+    order = sorted(xs, key=lambda i: len(xs[i]))
+    groups: List[List[int]] = []
+    for i in order:
+        if groups and len(xs[i]) <= 2 * len(xs[groups[-1][0]]):
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+    pre: Dict[int, tuple] = {}
+    try:
+        for grp in groups:
+            xns = [np.ascontiguousarray(ahc._normalized(xs[i])) for i in grp]
+            Zs = cdev.linkage_dot_avg_device_batched(xns, device=diar.device)
+            thrs = two_gmm_calib_cosine_device_batched(xns,
+                                                       device=diar.device)
+            pre.update({i: (xs[i], Z, float(t))
+                        for i, Z, t in zip(grp, Zs, thrs)})
+    except cdev.ReducibilityError as exc:
+        warnings.warn(
+            f"batched device linkage failed ({exc!r}); recordings fall "
+            f"back to the per-recording init path", stacklevel=3)
+        # keep the float64 transforms: prep() runs the per-recording AHC
+        # on them (recordings already linked keep their Z)
+        for i, x in xs.items():
+            pre.setdefault(i, (x, None, None))
+    return pre
+
+
 def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
                      verbose: bool, init_workers: int = 8,
                      fb_impl: Optional[str] = None,
@@ -485,10 +564,23 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     dev = diar.device
     n = len(recs)
 
+    t_pre = time.perf_counter()
+    pre_xz = _pre_stage(diar, recs)
+    if stage_log is not None and pre_xz:
+        stage_log["pre_linkage_s"] = round(time.perf_counter() - t_pre, 3)
+        stage_log["pre_linkage_recordings"] = sum(
+            1 for v in pre_xz.values() if v[1] is not None)
+
     def prep(i):
         rec, _, x_raw = recs[i]
-        x = diar.transform_xvectors(x_raw)
-        labels = diar.initial_labels(x)
+        pre = pre_xz.pop(i, None)
+        if pre is not None:
+            x, Z_pre, thr_pre = pre
+            labels = diar.initial_labels(x, precomputed_Z=Z_pre,
+                                         precomputed_thr=thr_pre)
+        else:
+            x = diar.transform_xvectors(x_raw)
+            labels = diar.initial_labels(x)
         fea, phi, qinit = diar.vb_inputs(x, labels)
         T, S = qinit.shape
         key = bucket_shape(T, S)

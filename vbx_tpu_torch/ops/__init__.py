@@ -15,3 +15,4 @@ from vbx_tpu_torch.ops.vb_steps import (  # noqa: F401
 from vbx_tpu_torch.ops.similarity import (  # noqa: F401
     cos_similarity, plda_scoring_in_lda_space,
 )
+from vbx_tpu_torch.ops.calibration import two_gmm_calib_lin  # noqa: F401

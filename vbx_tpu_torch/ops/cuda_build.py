@@ -33,7 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "--split-compile=0")
 
-_LOCK = threading.Lock()
+# one lock for every build and load: the first call of a kernel may come
+# from several threads at once (the serving daemon's init pool and its
+# dispatch thread), and each must find the library built and loaded once
+_LOCK = threading.RLock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -110,9 +113,10 @@ def build(names: Optional[Iterable[str]] = None,
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if missing or older
     than its source."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(library_path(name))
-        _LIBS[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            _LIBS[name] = lib
+        return lib
