@@ -108,12 +108,15 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    3, steps, cycles a step, bound from the rows the walk read) against
    the host float64 chain (linkage_dot_avg, once on all cores and, at 6144
    and 10000, on one thread): sorted merge distances within AHC_PAIRS_BAR
-   and labels equal at the AHC cut and two gap-midpoint cuts; the walk's
-   per-step floor at N = 256; the kernel against its plain twin at
+   and labels equal at the AHC cut and two gap-midpoint cuts, each beside
+   the two-barrier design's figures (AHC_TWO_BARRIER); the walk's per-step
+   floor at N = 256; the
+   crossover: the walk at N = 1024 / 2048 / 4096 against the host chain on
+   one thread (the same gates); the kernel against its plain twin at
    N = 2048 (the same contract); four lanes (6144 / 8000 / 10000 / 12000)
-   in one launch bit-equal to each alone and at another grid size; the
-   calibration sweeps, single and batched, within AHC_THR_BAR of the host
-   blocked sweep, with ms a pass against its bound and the whole
+   in one launch bit-equal to each alone and at one and two blocks an SM;
+   the calibration sweeps, single and batched, within AHC_THR_BAR of the
+   host blocked sweep, with ms a pass against its bound and the whole
    calibration's seconds against the host sweep's; ahc_labels('auto',
    'cuda') at N = 10000 launching the walk once, no fallback, the 'host'
    labels; and the corpus pre-stage: 4 recordings of PRE_LENGTHS through
@@ -1622,6 +1625,13 @@ AHC_CLUSTERS = 8
 AHC_TWIN_N = 2048
 AHC_BATCH_NS = (6144, 8000, 10000, 12000)
 AHC_FLOOR_N = 256          # a walk this short shows the per-step floor
+AHC_CROSS_NS = (1024, 2048, 4096)   # the walk against the one-thread host
+                                    # chain (the init pool's setting)
+# the walk's earlier design on this card (two grid barriers a step; PERF.md
+# §6, the walk row), printed beside this run's
+AHC_TWO_BARRIER = {"ms": {6144: 174.5, 10000: 385.0, 16384: 640.7},
+           "us_per_step": {6144: 9.51, 10000: 12.88, 16384: 13.07},
+           "floor_us": 10.13, "batched_ms": 880.0}
 AHC_PAIRS_BAR = 1e-12      # the float64 walk's sorted merge distances vs
                            # the host chain's and the twin's
 AHC_THR_BAR = 5e-5         # device vs host threshold, tests/test_ahc.py
@@ -1811,8 +1821,29 @@ def device_ahc_path(work: str) -> dict:
                    "same_pairs": float(np.mean(
                        np.all(Zk[:, :2] == Zp[:, :2], axis=1)))}
 
+    # the crossover: the walk against the host chain on one thread
+    out["cross"] = {}
+    for n in AHC_CROSS_NS:
+        xn = ahc_xn(n, 7 * n)
+        sums = torch.from_numpy(xn)[None].cuda()
+        ms = timed(lambda: walk(sums, [n]))
+        Zd = walk_to_z(walk(sums, [n]), 0, n)
+        set_native_threads(1)
+        t0 = time.perf_counter()
+        Zh = linkage_dot_avg(xn, backend="native")
+        host1_ms = (time.perf_counter() - t0) * 1e3
+        set_native_threads(cores)
+        dd = float(np.abs(np.sort(Zh[:, 2]) - np.sort(Zd[:, 2])).max())
+        _, thr_h = ahc._blocked_cosine_condensed_and_thr(
+            xn, want_condensed=False)
+        if not dd < AHC_PAIRS_BAR or not cut_labels_equal(Zd, Zh, thr_h,
+                                                          bias):
+            fail(f"walk at N={n}: distances {dd} or labels off the host's")
+        out["cross"][n] = {"ms": ms, "host_1thread_ms": host1_ms,
+                           "dist_err": dd}
+
     # batch invariance: four lanes in one launch, bit-equal alone, and at
-    # another grid size; the batched call's time
+    # one and two blocks an SM; the batched call's time
     ns = list(AHC_BATCH_NS)
     xs = [ahc_xn(n, 100 + n) for n in ns]
     big = np.zeros((len(ns), max(ns), AHC_D))
@@ -1821,20 +1852,20 @@ def device_ahc_path(work: str) -> dict:
     big = torch.from_numpy(big).cuda()
     batched_ms = timed(lambda: walk(big, ns))
     full = walk(big, ns)
-    grid1 = walk(big, ns, blocks_per_sm=1)
+    grids = [walk(big, ns, blocks_per_sm=b) for b in (1, 2)]
     for m, n in enumerate(ns):
         alone = walk(big[m:m + 1, :n].contiguous(), [n])
         for j in range(6):
             if j > 2:      # bad, steps, rows: one number a lane
                 if not int(full[j][m]) == int(alone[j][0]) \
-                        == int(grid1[j][m]):
+                        == int(grids[0][j][m]) == int(grids[1][j][m]):
                     fail(f"walk lane N={n}: output {j} differs alone / "
-                         f"batched / at another grid")
+                         f"batched / at 1 or 2 blocks an SM")
                 continue
-            for other in (alone[j][0], grid1[j][m]):
+            for other in (alone[j][0], grids[0][j][m], grids[1][j][m]):
                 if not torch.equal(full[j][m, :n - 1], other[:n - 1]):
                     fail(f"walk lane N={n}: not bit-equal alone / batched / "
-                         f"at another grid")
+                         f"at 1 or 2 blocks an SM")
     out["batched"] = {"ns": ns, "ms": batched_ms,
                       "steps": [int(v) for v in full[4].cpu()],
                       "bound_ms": sum(
@@ -2383,11 +2414,14 @@ def main() -> int:
         sw = ap["sweep"][n]
         one = (f", one thread {w['host_1thread_s']:.2f} s"
                if w["host_1thread_s"] is not None else "")
+        old = AHC_TWO_BARRIER
         print(f"walk N={n}, D={AHC_D}: {w['ms']:.1f} ms (median of 3, one "
-              f"launch, grid {w['grid']}), {w['steps']} steps, "
+              f"launch, grid {w['grid']}; two-barrier design "
+              f"{old['ms'][n]} ms), {w['steps']} steps, "
               f"{w['us_per_step']:.2f} us = {w['cycles_per_step']:.0f} "
-              f"cycles a step; {w['rows']} rows scanned, bound "
-              f"{w['bound_ms']:.1f} ms (bytes at the HBM rate); host "
+              f"cycles a step (two-barrier {old['us_per_step'][n]} us); "
+              f"{w['rows']} rows scanned, bound {w['bound_ms']:.1f} ms "
+              f"(bytes at the HBM rate); host "
               f"f64 chain {w['host_s']:.2f} s on {os.cpu_count()} cores"
               f"{one}; sorted distances within {w['dist_err']:.2e}, labels "
               f"equal at the AHC cut and two gap cuts")
@@ -2401,17 +2435,25 @@ def main() -> int:
     t = ap["twin"]
     b = ap["batched"]
     print(f"walk floor at N={f['n']}: {f['us_per_step']:.2f} us a step "
-          f"({f['steps']} steps)")
+          f"({f['steps']} steps; two-barrier "
+          f"{AHC_TWO_BARRIER['floor_us']} us)")
+    for n, c in ap["cross"].items():
+        print(f"walk crossover N={n}: {c['ms']:.2f} ms against the host "
+              f"chain on one thread {c['host_1thread_ms']:.1f} ms "
+              f"({c['host_1thread_ms'] / c['ms']:.1f}x), sorted distances "
+              f"within {c['dist_err']:.2e}, labels equal")
     print(f"walk vs plain twin at N={t['n']}: {t['ms']:.2f} ms vs "
           f"{t['plain_ms']:.0f} ms, sorted distances within "
           f"{t['max_abs_err']:.2e}, labels equal at the cuts, merge pairs "
           f"equal {t['same_pairs']:.4f}, steps {t['steps']} / "
           f"{t['twin_steps']}, {t['rows']} rows scanned, bound "
           f"{t['bound_ms']:.2f} ms")
-    print(f"walk batched N={b['ns']}: {b['ms']:.1f} ms one launch, steps "
-          f"{b['steps']}, bound {b['bound_ms']:.1f} ms; every lane "
-          f"bit-equal alone and at another grid; batched sweep within "
-          f"{AHC_THR_BAR} of the host")
+    print(f"walk batched N={b['ns']}: {b['ms']:.1f} ms one launch "
+          f"(two-barrier {AHC_TWO_BARRIER['batched_ms']} ms), steps "
+          f"{b['steps']}, bound "
+          f"{b['bound_ms']:.1f} ms; every lane bit-equal alone and at 1 "
+          f"and 2 blocks an SM; batched sweep within {AHC_THR_BAR} of the "
+          f"host")
     p = ap["pre"]
     print(f"pre-stage: {len(PRE_LENGTHS)} recordings of {list(PRE_LENGTHS)} "
           f"through diarize_ark: pre_linkage_recordings "

@@ -228,3 +228,53 @@ def test_walk_on_a_card_needs_the_kernel_library():
     with pytest.raises(ValueError, match="cuda or cpu"):
         tdev.nn_chain_walk(torch.zeros((1, 4, 3), dtype=torch.float64,
                                        device="meta"), [4])
+
+
+def test_walk_sizes_its_scratch_and_shared_memory():
+    """The wrapper's sizing of the walk kernel's launch: the exchange
+    scratch covers the grid at any blocks_per_sm it may be given (0: the
+    kernel's default, one block an SM), and a lane's rows, replicas and
+    bitmap must fit one block's shared memory (csrc/nn_chain.cu:Layout):
+    16 KB of bitmap at N = 131072, D = 128 fits, D > 4096 or N = 2M do
+    not."""
+    assert tdev.exchange_blocks(132, 0) == 264
+    assert tdev.exchange_blocks(132, 1) == 264
+    assert tdev.exchange_blocks(132, 3) == 396
+    # tip and predecessor rows, 8 warps' partials twice, two 96-byte
+    # replicas, one bit a row
+    assert tdev.lane_shared_bytes(16384, 128) == 2048 + 192 + 192 + 2048
+    assert tdev.lane_shared_bytes(33, 4) == 64 + 192 + 192 + 8
+    tdev._check_walk_shape(131072, 128)
+    with pytest.raises(ValueError, match="D=4097"):
+        tdev._check_walk_shape(100, 4097)
+    with pytest.raises(ValueError, match="shared memory"):
+        tdev._check_walk_shape(2_000_000, 128)
+
+
+def test_walk_refuses_a_negative_grid():
+    with pytest.raises(ValueError, match="blocks_per_sm"):
+        tdev.nn_chain_walk(torch.zeros((1, 4, 3), dtype=torch.float64), [4],
+                           blocks_per_sm=-1)
+
+
+def test_tuning_variants_apply_to_the_walk_source():
+    """scripts/torch_nn_chain_tuning.py makes its variants by text
+    substitution of csrc/nn_chain.cu: every substitution finds its text in
+    the shipped source (it raises otherwise), and the phase timers add the
+    entry point that reads them."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_nn_chain_tuning",
+        os.path.join(root, "scripts", "torch_nn_chain_tuning.py"))
+    tuning = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tuning)
+    src = open(os.path.join(root, "vbx_tpu_torch", "csrc",
+                            "nn_chain.cu")).read()
+    made = {tag: tuning.variant_source(src, subs)
+            for tag, subs in tuning.VARIANTS.items()}
+    assert made["shipped"] == src
+    assert "nn_chain_phases" in made["phases"]
+    assert made["no_sleep"] != src and made["fence"] != src

@@ -563,7 +563,7 @@ def test_nn_chain_kernel_lane_does_not_depend_on_its_batch():
     sums, _ = _walk_inputs(ns, 128, seed=3)
     sums = sums.cuda()
     full = cdev.nn_chain_walk(sums, ns)
-    other_grid = cdev.nn_chain_walk(sums, ns, blocks_per_sm=1)
+    grids = [cdev.nn_chain_walk(sums, ns, blocks_per_sm=b) for b in (1, 2)]
     for m, n in enumerate(ns):
         alone = cdev.nn_chain_walk(sums[m:m + 1, :n].contiguous(), [n])
         rev = cdev.nn_chain_walk(sums.flip(0).contiguous(), ns[::-1])
@@ -572,9 +572,109 @@ def test_nn_chain_kernel_lane_does_not_depend_on_its_batch():
             assert torch.equal(full[j][m, :n - 1], alone[j][0, :n - 1])
             assert torch.equal(full[j][m, :n - 1],
                                rev[j][len(ns) - 1 - m, :n - 1])
-            assert torch.equal(full[j][m, :n - 1],
-                               other_grid[j][m, :n - 1])
+            for other_grid in grids:
+                assert torch.equal(full[j][m, :n - 1],
+                                   other_grid[j][m, :n - 1])
     assert not full[3].any()
+
+
+def _integer_walk_inputs(ns, D, seed, levels=2, dup=()):
+    """[M, max(ns), D] float64 rows with integer entries in [-levels,
+    levels]: every dot is an exact integer in any summation order, so the
+    kernel and its twin see the same distances to the bit and break the
+    same exact ties. `dup` lists (lane, row, copy of row) pairs."""
+    rng = np.random.default_rng(seed)
+    sums = np.zeros((len(ns), max(ns), D))
+    for m, n in enumerate(ns):
+        sums[m, :n] = rng.integers(-levels, levels + 1, (n, D))
+    for m, i, j in dup:
+        sums[m, i] = sums[m, j]
+    return torch.from_numpy(sums)
+
+
+def _assert_walks_equal(k_out, p_out, ns):
+    """Every output of every lane bit-equal (bad all clear)."""
+    assert not k_out[3].any() and not p_out[3].any()
+    for m, n in enumerate(ns):
+        k = max(n - 1, 0)
+        for j in range(3):
+            assert torch.equal(k_out[j][m, :k].cpu(), p_out[j][m, :k].cpu()), \
+                (m, n, j)
+        assert int(k_out[4][m]) == int(p_out[4][m]), (m, n)
+        assert int(k_out[5][m]) == int(p_out[5][m]), (m, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("ns,D,levels", [
+    ((2,), 4, 2), ((3,), 4, 2), ((33,), 8, 2),        # most blocks own no rows
+    ((33, 2, 3), 8, 1),                                # levels 1: many ties
+    ((200,), 16, 1), ((517, 64), 16, 2)])
+def test_nn_chain_kernel_bit_equal_to_twin_on_exact_dots(ns, D, levels,
+                                                         blocks_per_sm):
+    """On integer rows (exact dots: the kernel and the twin break the same
+    exact ties), the kernel's merges, distances, steps and rows equal the
+    twin's bit for bit, at one and two blocks an SM. N = 2, 3 and 33 leave
+    most of the grid's blocks without rows; entries in [-1, 1] make many
+    rows and cluster sums tie exactly, so the lowest-index and predecessor
+    rules decide most steps."""
+    _need_card()
+    from vbx_tpu_torch.clustering import device as cdev
+
+    sums = _integer_walk_inputs(ns, D, seed=sum(ns) + D, levels=levels)
+    k_out = cdev.nn_chain_walk(sums.cuda(), ns, blocks_per_sm=blocks_per_sm)
+    _assert_walks_equal(k_out, cdev.nn_chain_walk_plain(sums, ns), ns)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+def test_nn_chain_kernel_reads_the_row_it_merged_in_the_same_step(
+        blocks_per_sm):
+    """The trap of the owner's merge: a merge that empties the chain seeds
+    it with the lowest active index, which is the row b written in that very
+    step. Built on purpose: row 0 is duplicated as row 5 and every other row
+    is farther from it, so the walk pushes 5 onto the chain [0], merges 5
+    into 0 (chain empty) and seeds the chain with 0, whose new sum the next
+    step must see (a stale row would halve every distance to it). Rows
+    1 / 9 and 2 / 12 are such pairs as well. The twin (integer rows, exact
+    dots) is the reference, bit for bit."""
+    _need_card()
+    from vbx_tpu_torch.clustering import device as cdev
+
+    D, n = 16, 40
+    rng = np.random.default_rng(17)
+    x = rng.integers(-1, 2, (n, D)).astype(np.float64)
+    for i, j in ((0, 5), (1, 9), (2, 12)):
+        x[i] = 3.0 * rng.integers(-1, 2, D)
+        x[i, i] = 4.0                     # pairs far from each other
+        x[j] = x[i]
+    sums = torch.from_numpy(x)[None]
+    p_out = cdev.nn_chain_walk_plain(sums, [n])
+    assert (int(p_out[0][0, 0]), int(p_out[1][0, 0])) == (5, 0)
+    k_out = cdev.nn_chain_walk(sums.cuda(), [n], blocks_per_sm=blocks_per_sm)
+    _assert_walks_equal(k_out, p_out, [n])
+
+
+@pytest.mark.gpu
+def test_nn_chain_kernel_more_lanes_than_blocks_with_rows():
+    """40 lanes of 2-60 rows in one launch (more lanes than the blocks that
+    own rows, and more than the kernel walks at once: two groups), each
+    lane bit-equal to the twin and to itself alone."""
+    _need_card()
+    from vbx_tpu_torch.clustering import device as cdev
+
+    ns = [2 + (7 * m) % 59 for m in range(40)]
+    sums = _integer_walk_inputs(ns, 8, seed=23)
+    before = cdev.nn_chain_walk.launches
+    k_out = cdev.nn_chain_walk(sums.cuda(), ns)
+    assert cdev.nn_chain_walk.launches == before + 1
+    assert cdev.nn_chain_walk.group < len(ns)
+    _assert_walks_equal(k_out, cdev.nn_chain_walk_plain(sums, ns), ns)
+    for m in (0, 17, 39):
+        n = ns[m]
+        alone = cdev.nn_chain_walk(sums[m:m + 1, :n].cuda().contiguous(), [n])
+        for j in range(3):
+            assert torch.equal(alone[j][0, :n - 1], k_out[j][m, :n - 1])
 
 
 @pytest.mark.gpu

@@ -45,9 +45,9 @@ import torch
 from vbx_tpu_torch.device import DeviceLike, resolve_device
 from vbx_tpu_torch.ops import cuda_build
 
-MAX_D = 4096          # csrc/nn_chain.cu: the tip's row in shared memory
-_CHUNK_ROWS = 32      # csrc/nn_chain.cu: kChunkRows
-_STATE_INTS = 8       # clen, k, merges, bad, steps, first, n, (spare)
+MAX_D = 4096          # csrc/nn_chain.cu: kMaxD
+_MAX_GROUP = 32       # csrc/nn_chain.cu: kMaxGroup, lanes walked at once
+_SHARED_BYTES = 232448  # an H100 block's shared memory (opt-in)
 _WALK_LOCK = threading.Lock()
 
 
@@ -57,13 +57,92 @@ class ReducibilityError(RuntimeError):
     such a recording."""
 
 
-def _launcher():
-    fn = cuda_build.library("nn_chain").nn_chain_walk_launch
+def _bind(fn):
+    """Set the argument types of a nn_chain_walk_launch entry point."""
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
+        fn.argtypes = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p]
+                       + [ctypes.POINTER(ctypes.c_int)] * 2)
     return fn
+
+
+def _launcher():
+    return _bind(cuda_build.library("nn_chain").nn_chain_walk_launch)
+
+
+def lane_shared_bytes(Np: int, D: int) -> int:
+    """Shared memory one lane takes in every block of the walk kernel
+    (csrc/nn_chain.cu:Layout): the staged tip and predecessor rows, the
+    8 warps' partials of the scan and of the exchange, two copies of the
+    replicated bookkeeping (96 bytes each) and the active set as a
+    bitmap."""
+    return 2 * D * 8 + 2 * 8 * (8 + 4) + 2 * 96 + 4 * (-(-Np // 32))
+
+
+def exchange_blocks(sms: int, blocks_per_sm: int) -> int:
+    """Blocks the exchange scratch is sized for: the kernel's grid is
+    blocks_per_sm (0: its default, 1) blocks on each of `sms` SMs."""
+    return max(blocks_per_sm, 2) * sms
+
+
+def _check_walk_shape(Np: int, D: int) -> None:
+    if D > MAX_D:
+        raise ValueError(f"D={D} > {MAX_D}: the walk kernel stages the tip's "
+                         f"and the predecessor's rows in shared memory")
+    if lane_shared_bytes(Np, D) > _SHARED_BYTES:
+        raise ValueError(f"N={Np}, D={D}: a lane's rows and active set do "
+                         f"not fit one block's shared memory "
+                         f"({_SHARED_BYTES} bytes)")
+
+
+def walk_on_card(fn, sums: torch.Tensor, ns: Sequence[int],
+                 blocks_per_sm: int = 0):
+    """Launch a nn_chain_walk_launch entry point `fn` (the shipped kernel's
+    or a variant's) on CUDA `sums` [M, Np, D] float64 and wait for it.
+    Returns ((ma, mb, md, bad, steps, rows), grid, lanes walked at once);
+    raises RuntimeError if the launch fails."""
+    M, Np, D = sums.shape
+    _check_walk_shape(Np, D)
+    Np2 = max(Np, 2)
+    dev = sums.device
+    x = torch.zeros((M, Np2, D), dtype=torch.float64, device=dev)
+    x[:, :Np] = sums
+    sizes = torch.ones((M, Np2), dtype=torch.float64, device=dev)
+    n_t = torch.tensor(ns, dtype=torch.int32, device=dev)
+    chain = torch.zeros((M, Np2 + 2), dtype=torch.int32, device=dev)
+    chain_d = torch.zeros((M, Np2 + 2), dtype=torch.float64, device=dev)
+    ma = torch.zeros((M, Np2 - 1), dtype=torch.int32, device=dev)
+    mb = torch.zeros_like(ma)
+    md = torch.zeros((M, Np2 - 1), dtype=torch.float64, device=dev)
+    bad = torch.zeros(M, dtype=torch.int32, device=dev)
+    steps = torch.zeros(M, dtype=torch.int32, device=dev)
+    rows_read = torch.zeros(M, dtype=torch.int64, device=dev)
+    cap = exchange_blocks(
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        blocks_per_sm)
+    # 16-byte (distance, index) records, two slots; tags -1: no step yet
+    recs = torch.empty((2, cap, _MAX_GROUP, 2), dtype=torch.float64,
+                       device=dev)
+    tags = torch.full((2, cap), -1, dtype=torch.int32, device=dev)
+    grid, group = ctypes.c_int(0), ctypes.c_int(0)
+    with _WALK_LOCK, torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), sizes.data_ptr(), n_t.data_ptr(),
+                chain.data_ptr(), chain_d.data_ptr(), ma.data_ptr(),
+                mb.data_ptr(), md.data_ptr(),
+                bad.data_ptr(), steps.data_ptr(), rows_read.data_ptr(),
+                recs.data_ptr(), tags.data_ptr(), M, Np2, D, cap,
+                int(blocks_per_sm), stream, ctypes.byref(grid),
+                ctypes.byref(group))
+        if rc != 0:
+            raise RuntimeError(f"nn_chain_walk kernel launch failed: CUDA "
+                               f"error {rc} (M={M}, N={Np}, D={D})")
+        # the walk holds the card: finish it inside the lock
+        torch.cuda.current_stream(dev).synchronize()
+    k = Np - 1 if Np >= 1 else 0
+    return ((ma[:, :k], mb[:, :k], md[:, :k], bad != 0, steps, rows_read),
+            grid.value, group.value)
 
 
 def nn_chain_walk(sums: torch.Tensor, ns: Sequence[int],
@@ -88,66 +167,24 @@ def nn_chain_walk(sums: torch.Tensor, ns: Sequence[int],
     ns = [int(n) for n in ns]
     if len(ns) != M or any(n < 0 or n > Np for n in ns):
         raise ValueError(f"ns must give 0 <= n <= {Np} for each of {M} lanes")
+    if int(blocks_per_sm) < 0:
+        raise ValueError(f"blocks_per_sm must be >= 0 (0: the kernel's "
+                         f"default), got {blocks_per_sm}")
     if sums.device.type == "cpu":
         return nn_chain_walk_plain(sums, ns)
     if sums.device.type != "cuda":
         raise ValueError(f"nn_chain_walk runs on cuda or cpu, not "
                          f"{sums.device}")
-    if D > MAX_D:
-        raise ValueError(f"D={D} > {MAX_D}: the walk kernel holds the tip's "
-                         f"row of at most {MAX_D} doubles in shared memory")
-    Np2 = max(Np, 2)
-    dev = sums.device
-    x = torch.zeros((M, Np2, D), dtype=torch.float64, device=dev)
-    x[:, :Np] = sums
-    n_t = torch.tensor(ns, dtype=torch.int32)
-    rows = torch.arange(Np2, dtype=torch.int32)
-    active = (rows[None, :] < n_t[:, None]).to(torch.int32)
-    state = torch.zeros((M, _STATE_INTS), dtype=torch.int32)
-    state[:, 0] = (n_t >= 2).to(torch.int32)              # clen: chain [0]
-    state[:, 2] = torch.clamp(n_t - 1, min=0)             # merges to make
-    state[:, 6] = n_t
-    hdr = torch.zeros((M, 4), dtype=torch.int32)
-    hdr[:, 0] = (n_t >= 2).to(torch.int32)                # live; tip 0
-    hdr[:, 2] = -1                                        # no predecessor
-    size_a = torch.ones(M, dtype=torch.float64, device=dev)   # |tip| = 1
-    live = torch.tensor([int((n_t >= 2).sum()), 0], dtype=torch.int32)
-    nch = -(-Np2 // _CHUNK_ROWS)
-    sizes = torch.ones((M, Np2), dtype=torch.float64, device=dev)
-    chain = torch.zeros((M, Np2 + 2), dtype=torch.int32, device=dev)
-    ma = torch.zeros((M, Np2 - 1), dtype=torch.int32, device=dev)
-    mb = torch.zeros_like(ma)
-    md = torch.zeros((M, Np2 - 1), dtype=torch.float64, device=dev)
-    part_d = torch.empty((M, nch), dtype=torch.float64, device=dev)
-    part_i = torch.empty((M, nch), dtype=torch.int32, device=dev)
-    dprev = torch.zeros(M, dtype=torch.float64, device=dev)
-    rows_read = torch.zeros(M, dtype=torch.int64, device=dev)
-    active, state, hdr, live = (t.to(dev) for t in (active, state, hdr,
-                                                    live))
-    fn = _launcher()
-    grid = ctypes.c_int(0)
-    with _WALK_LOCK, torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), sizes.data_ptr(), active.data_ptr(),
-                chain.data_ptr(), state.data_ptr(), hdr.data_ptr(),
-                size_a.data_ptr(), ma.data_ptr(), mb.data_ptr(), md.data_ptr(),
-                part_d.data_ptr(), part_i.data_ptr(), dprev.data_ptr(),
-                live.data_ptr(), rows_read.data_ptr(), M, Np2, D, nch,
-                int(blocks_per_sm), stream, ctypes.byref(grid))
-        if rc != 0:
-            raise RuntimeError(f"nn_chain_walk kernel launch failed: CUDA "
-                               f"error {rc} (M={M}, N={Np}, D={D})")
-        nn_chain_walk.launches += 1
-        nn_chain_walk.grid = grid.value
-        # the walk holds the card: finish it inside the lock
-        torch.cuda.current_stream(dev).synchronize()
-    k = Np - 1 if Np >= 1 else 0
-    return (ma[:, :k], mb[:, :k], md[:, :k], state[:, 3] != 0,
-            state[:, 4].clone(), rows_read)
+    out, grid, group = walk_on_card(_launcher(), sums, ns, blocks_per_sm)
+    nn_chain_walk.launches += 1
+    nn_chain_walk.grid = grid
+    nn_chain_walk.group = group
+    return out
 
 
 nn_chain_walk.launches = 0   # kernel launches since the caller last reset it
 nn_chain_walk.grid = 0       # blocks of the last launch
+nn_chain_walk.group = 0      # lanes the last launch walked at once
 
 
 def nn_chain_walk_plain(sums: torch.Tensor, ns: Sequence[int]
