@@ -132,9 +132,27 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    phase 7's seeded ResNet101 checkpoint): /healthz names cuda and the
    card, an inline, an ark and a wav request answer 200, the corpus ark at
    an admission bound of 1 answers 503, SIGTERM drains it;
-10. one JSON line listing every ported kernel with its numbers, the total
+10. multi-host corpus runs and the multi-device dryrun: (a) the corpus
+   runner (python -m vbx_tpu_torch.cli.run_corpus) runs its diarization
+   stage on phase 4's corpus under the callhome preset (K1 in bfloat16)
+   once in one process and once in two processes of one gloo group on
+   cuda:0 (COORDINATOR_ADDRESS on a free local port, NUM_PROCESSES=2,
+   PROCESS_ID), then its score stage against the truth RTTMs after each:
+   all.rttm byte-equal, score lines equal, K1 launched; (b) its xvectors
+   stage on phase 7's audio with phase 7's seeded ResNet101 checkpoint
+   (preset ami_mixheadset, 16 kHz), one process against two: keys and
+   segments byte-equal, x-vectors byte-equal or within XV_SPLIT_COS /
+   XV_SPLIT_ERR (the line says which); each stage's wall seconds from
+   spawn to the last exit, process start-up and CUDA initialization
+   included and timed alone; (c) parallel.dryrun.dryrun_multichip over
+   every visible card, or over cuda:0 four times (a 2x2 mesh) with one
+   card, K1 and K2 launched; (d) with at least two cards, phase 5's mesh
+   EM (B=4, T=32768, S=8) on a 1x4 (1x2 with two or three cards) mesh of
+   distinct cards beside the same mesh of cuda:0 repeated and the solo
+   engine; with one card a line says that (d) did not run and why;
+11. one JSON line listing every ported kernel with its numbers, the total
    seconds;
-11. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+12. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Without a card, or outside a checkout, it exits non-zero before printing
 any result.
@@ -192,6 +210,12 @@ EXTRACT_F32_COS = 0.99999
 EXTRACT_F32_ERR = 2e-4
 EXTRACT_BF16_COS = 0.999
 FEATURE_F32_BAR = 1e-3
+# multi-host corpus runs (phase 10): seconds a stage's processes may take;
+# the bar for x-vectors of a split xvectors stage that are not byte-equal
+# (phase 7's float32 ark against the CPU, as measured on an H100)
+STAGE_TIMEOUT = 600
+XV_SPLIT_COS = 0.9999999
+XV_SPLIT_ERR = 8.9e-7
 
 
 def fail(msg: str) -> None:
@@ -225,6 +249,15 @@ def _cuda_ms(fn, n: int = 25) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def _sync_all() -> None:
+    """Wait for every visible card (torch.cuda.synchronize waits only for
+    the current one)."""
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
 
 
 def _host_ms(fn, n: int = 3) -> float:
@@ -1503,11 +1536,12 @@ def mesh_vb_args(corpus, cfg):
             (X, phi.astype(np.float32), G, PI, FM, SM)]
 
 
-def mesh_em_ms(corpus, cfg, mesh, n_iters: int = 10) -> dict:
-    """ms per EM iteration of the sharded engine on `mesh` and of the solo
-    engine (kernel route, float32), on the mesh corpus's padded batch, run
-    past convergence (epsilon=-inf) for n_iters, in turns mesh, solo, solo,
-    mesh after a warm-up of each."""
+def mesh_em_ms(corpus, cfg, meshes: dict, n_iters: int = 10) -> dict:
+    """ms per EM iteration of the sharded engine on each of `meshes`
+    ({name: Mesh}) and of the solo engine (kernel route, float32), on the
+    mesh corpus's padded batch, run past convergence (epsilon=-inf) for
+    n_iters, in turns (each mesh, solo, solo, each mesh in reverse order)
+    after a warm-up of each. Every card is synchronized around a run."""
     import torch
 
     from vbx_tpu_torch.engine.vbhmm import vbx_batched
@@ -1516,26 +1550,31 @@ def mesh_em_ms(corpus, cfg, mesh, n_iters: int = 10) -> dict:
     args = mesh_vb_args(corpus, cfg)
     kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
               epsilon=float("-inf"), fb_impl="pallas")
-    fns = {"mesh": lambda n: vbx_sharded(mesh, *args, max_iters=n, **kw),
-           "solo": lambda n: vbx_batched(*args, max_iters=n, device="cuda",
-                                         **kw)}
+    fns = {name: (lambda n, m=m: vbx_sharded(m, *args, max_iters=n, **kw))
+           for name, m in meshes.items()}
+    fns["solo"] = lambda n: vbx_batched(*args, max_iters=n, device="cuda",
+                                        **kw)
     for fn in fns.values():
         fn(2)
-    times = {"mesh": [], "solo": []}
-    for name in ("mesh", "solo", "solo", "mesh"):
-        torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    gammas = {}
+    for name in [*meshes, "solo", "solo", *reversed(list(meshes))]:
+        _sync_all()
         t0 = time.perf_counter()
         res = fns[name](n_iters)
-        torch.cuda.synchronize()
+        _sync_all()
         times[name].append((time.perf_counter() - t0) / n_iters * 1e3)
         if not (bool(torch.isfinite(res.gamma).all())
                 and bool((res.n_iters == n_iters).all())):
             fail(f"{name} EM at the mesh shape: non-finite gamma or "
                  f"n_iters {res.n_iters.tolist()} != {n_iters}")
+        gammas[name] = res.gamma.cpu()
     return {"shape": list(args[2].shape) + [args[0].shape[-1]],
-            "mesh": mesh.shape, "iters": n_iters,
-            "mesh_ms_per_iter": times["mesh"],
-            "solo_ms_per_iter": times["solo"]}
+            "meshes": {name: m.shape for name, m in meshes.items()},
+            "devices": {name: sorted({str(d) for row in m.devices
+                                      for d in row})
+                        for name, m in meshes.items()},
+            "iters": n_iters, "ms_per_iter": times, "gamma": gammas}
 
 
 def mesh_path(work: str) -> dict:
@@ -1595,7 +1634,8 @@ def mesh_path(work: str) -> dict:
                      f"route {agree} < {MESH_AGREE[impl]}")
             r["agreement_vs_solo"] = agree
         out[tag] = r
-    out["em"] = mesh_em_ms(corpus, cfg, meshes["1x4"])
+    out["em"] = mesh_em_ms(corpus, cfg, {"1x4": meshes["1x4"]})
+    del out["em"]["gamma"]
 
     # the checkpointed mesh form on the longest recording (one resume)
     import vbx_tpu_torch.engine.vbhmm as vbhmm
@@ -1987,6 +2027,20 @@ def _http(base: str, path: str, payload=None):
         return e.code, json.loads(e.read())
 
 
+def write_seeded_resnet101(path: str) -> str:
+    """Phase 7's seeded ResNet101 (seed 0, embedding bias zero) saved as a
+    state-dict checkpoint at `path`; returns the path."""
+    import torch
+
+    from vbx_tpu_torch.models.resnet import resnet101
+
+    torch.manual_seed(0)
+    model = resnet101(64, 256)
+    torch.nn.init.zeros_(model.embedding.bias)
+    torch.save(model.state_dict(), path)
+    return path
+
+
 def serving_path(work: str) -> dict:
     """Phase 9: DiarizationService on the card over the smoke corpus from
     SERVE_THREADS threads, one AMI-length request, and the HTTP daemon."""
@@ -2004,7 +2058,6 @@ def serving_path(work: str) -> dict:
                                       write_vec_ark)
     from vbx_tpu_torch.io.segments import (read_xvector_timing_dict,
                                            write_segments)
-    from vbx_tpu_torch.models.resnet import resnet101
     from vbx_tpu_torch.ops import fb_kernel
     from vbx_tpu_torch.serving import DiarizationService
     from vbx_tpu_torch.testing import synth_recording, write_audio_corpus
@@ -2101,12 +2154,7 @@ def serving_path(work: str) -> dict:
         svc.close()
 
     # the HTTP daemon: a subprocess on a free local port
-    torch.manual_seed(0)
-    model = resnet101(64, 256)           # phase 7's seeded checkpoint
-    torch.nn.init.zeros_(model.embedding.bias)
-    ckpt = os.path.join(work, "resnet101.pth")
-    torch.save(model.state_dict(), ckpt)
-    del model
+    ckpt = write_seeded_resnet101(os.path.join(work, "resnet101.pth"))
     names, wavs, labs = write_audio_corpus(os.path.join(work, "audio"), 17,
                                            (60.0,), EXTRACT_FS)
     rec0, x0, ts0 = recs[0]
@@ -2184,6 +2232,301 @@ def serving_path(work: str) -> dict:
                    "stats_requests": stats["requests"]}
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+# multi-host corpus runs (phase 10): one corpus-runner stage in processes
+# started together, each `python -m vbx_tpu_torch.cli.run_corpus`'s main()
+# followed by the process's K1 launch count
+CORPUS_CHILD = """
+import json, sys
+from vbx_tpu_torch.cli import run_corpus
+from vbx_tpu_torch.ops import fb_kernel
+rc = run_corpus.main(sys.argv[1:])
+print("k1_launches " + json.dumps(fb_kernel.fb_fused_sb.launches))
+sys.exit(rc)
+"""
+STARTUP_CHILD = ("import torch, vbx_tpu_torch.cli.run_corpus; "
+                 "torch.zeros(1, device='cuda'); torch.cuda.synchronize()")
+CLUSTER_ENV = ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")
+
+
+def corpus_stage(argv, n_proc: int, log_dir: str) -> dict:
+    """The corpus runner's stage `argv` in n_proc processes started
+    together (with n_proc > 1, one gloo group: COORDINATOR_ADDRESS on a
+    free local port, NUM_PROCESSES, PROCESS_ID): the wall seconds from the
+    first spawn to the last exit (process start-up and CUDA initialization
+    included), the K1 launches summed over the processes, and each
+    process's output. A process that exits non-zero, or that is still
+    running after STAGE_TIMEOUT, fails the phase; every process is ended
+    before this returns."""
+    env = {k: v for k, v in os.environ.items() if k not in CLUSTER_ENV}
+    env["PYTHONPATH"] = HERE
+    port = _free_port()
+    envs = [env] if n_proc == 1 else [
+        {**env, "COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+         "NUM_PROCESSES": str(n_proc), "PROCESS_ID": str(p)}
+        for p in range(n_proc)]
+    logs = [open(os.path.join(log_dir, f"{argv[0]}_{n_proc}_{p}.log"), "w+")
+            for p in range(n_proc)]
+    procs = []
+    timed_out = False
+    try:
+        t0 = time.perf_counter()
+        for e, log in zip(envs, logs):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", CORPUS_CHILD, *argv], cwd=HERE,
+                env=e, stdout=log, stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, t0 + STAGE_TIMEOUT
+                                   - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            timed_out = True
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for log in logs:
+            log.seek(0)
+            texts.append(log.read())
+            log.close()
+    for i, (p, text) in enumerate(zip(procs, texts)):
+        if timed_out or p.returncode != 0:
+            fail(f"{argv[0]} stage, process {i} of {n_proc}: exit "
+                 f"{p.returncode}"
+                 + (f" (ended after {STAGE_TIMEOUT} s)" if timed_out else "")
+                 + f": {text[-3000:]}")
+    k1 = sum(int(line.split()[1]) for text in texts
+             for line in text.splitlines() if line.startswith("k1_launches "))
+    return {"wall_s": wall, "k1_launches": k1, "outputs": texts}
+
+
+def startup_s() -> float:
+    """Seconds from spawn to exit of a process that imports the port and
+    initializes CUDA on cuda:0 (what every stage process pays first)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", STARTUP_CHILD], cwd=HERE,
+                         env={**os.environ, "PYTHONPATH": HERE},
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"start-up probe: {res.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def _exp_dir(work: str, name: str, corpus) -> str:
+    """An experiment directory whose x-vector stage output is the corpus's
+    ark and segments (linked)."""
+    exp = os.path.join(work, name)
+    os.makedirs(exp)
+    os.symlink(corpus["ark"], os.path.join(exp, "xvectors.ark"))
+    os.symlink(corpus["segments"], os.path.join(exp, "xvectors.seg"))
+    return exp
+
+
+def multi_host_path(work: str) -> dict:
+    """Phase 10 (a) and (b): the corpus runner's stages in one process and
+    in two processes of one gloo group on cuda:0 (module docstring)."""
+    import numpy as np
+
+    from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.io.ark import iter_vec_ark
+    from vbx_tpu_torch.testing import write_audio_corpus, write_truth_rttms
+
+    t_phase = time.perf_counter()
+    out = {"startup_s": startup_s()}
+
+    # (a) diarization and score stages on phase 4's corpus, callhome
+    corpus = smoke_corpus(work)
+    refs = os.path.join(work, "refs")
+    write_truth_rttms(refs, corpus["truth"])
+    names = sorted(corpus["truth"])
+    lst = os.path.join(work, "list.txt")
+    with open(lst, "w") as f:
+        f.writelines(f"{n}\n" for n in names)
+    protocols = get_preset("callhome").protocols
+    runs = {}
+    for n_proc in (1, 2):
+        exp = _exp_dir(work, f"exp{n_proc}", corpus)
+        common = ["--preset", "callhome", "--list-file", lst,
+                  "--exp-dir", exp]
+        d = corpus_stage(["diarization", *common, "--plda-file",
+                          corpus["plda"], "--xvec-transform",
+                          corpus["transform"]], n_proc, work)
+        written = os.listdir(os.path.join(exp, "rttms"))
+        if len(written) != N_RECORDINGS or d["k1_launches"] < 1:
+            fail(f"diarization stage in {n_proc} process(es): "
+                 f"{len(written)} RTTMs, {d['k1_launches']} K1 launches")
+        sc = corpus_stage(["score", *common, "--ref-rttm-dir", refs], 1,
+                          work)
+        lines = [ln for ln in sc["outputs"][0].splitlines()
+                 if ln.split(":")[0] in protocols]
+        if len(lines) != len(protocols):
+            fail(f"score stage after {n_proc} process(es): "
+                 f"{sc['outputs'][0][-1000:]}")
+        with open(os.path.join(exp, "all.rttm"), "rb") as f:
+            body = f.read()
+        runs[n_proc] = {"diarization_s": d["wall_s"],
+                        "k1_launches": d["k1_launches"],
+                        "score_s": sc["wall_s"], "score": lines,
+                        "all": body, "exp": exp}
+    if runs[1]["all"] != runs[2]["all"]:
+        diff = []
+        for n in names:
+            a, b = (open(os.path.join(runs[k]["exp"], "rttms", f"{n}.rttm"),
+                         "rb").read() for k in (1, 2))
+            if a != b:
+                diff.append(n)
+        fail(f"diarization stage: all.rttm of 2 processes differs from 1 "
+             f"process on {len(diff)} recording(s): {diff[:8]}")
+    if runs[1]["score"] != runs[2]["score"]:
+        fail(f"score stage lines differ: {runs[1]['score']} vs "
+             f"{runs[2]['score']}")
+    for r in runs.values():
+        del r["all"], r["exp"]
+    out["a"] = runs
+
+    # (b) the xvectors stage on phase 7's audio with the seeded ResNet101
+    audio = os.path.join(work, "audio")
+    anames, _, _ = write_audio_corpus(audio, 13, EXTRACT_SECONDS, EXTRACT_FS)
+    ckpt = write_seeded_resnet101(os.path.join(work, "resnet101.pth"))
+    alst = os.path.join(work, "audio.txt")
+    with open(alst, "w") as f:
+        f.writelines(f"{n}\n" for n in anames)
+    xv = {}
+    for n_proc in (1, 2):
+        exp = os.path.join(work, f"xv{n_proc}")
+        r = corpus_stage(["xvectors", "--preset", "ami_mixheadset",
+                          "--list-file", alst, "--exp-dir", exp,
+                          "--wav-dir", audio, "--lab-dir", audio,
+                          "--weights", ckpt], n_proc, work)
+        with open(os.path.join(exp, "xvectors.seg"), "rb") as f:
+            seg = f.read()
+        with open(os.path.join(exp, "xvectors.ark"), "rb") as f:
+            ark = f.read()
+        xv[n_proc] = {"s": r["wall_s"], "seg": seg, "ark": ark,
+                      "vecs": list(iter_vec_ark(os.path.join(
+                          exp, "xvectors.ark")))}
+    one, two = xv[1], xv[2]
+    keys = [k for k, _ in one["vecs"]]
+    if keys != [k for k, _ in two["vecs"]] or one["seg"] != two["seg"]:
+        fail("xvectors stage: keys or segments of 2 processes differ from "
+             "1 process")
+    if {k.split("_")[0] for k in keys} != set(anames):
+        fail("xvectors stage: a recording is missing from the ark")
+    res = {"s_1": one["s"], "s_2": two["s"], "windows": len(keys),
+           "byte_equal": one["ark"] == two["ark"]}
+    if not res["byte_equal"]:
+        a = np.stack([v for _, v in one["vecs"]])
+        b = np.stack([v for _, v in two["vecs"]])
+        cos = float(_cos(b, a).min())
+        err = float(np.abs(b - a).max() / np.abs(a).max())
+        if not (cos >= XV_SPLIT_COS and err <= XV_SPLIT_ERR):
+            fail(f"xvectors stage: 2 processes vs 1: cosine {cos}, max abs "
+                 f"error / max {err}")
+        res.update(cos_min=cos, err=err)
+    out["b"] = res
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def multi_card_path(work: str) -> dict:
+    """Phase 10 (c) and (d): dryrun_multichip over every visible card (over
+    cuda:0 four times with one card), and with at least two cards the mesh
+    EM at phase 5's shape over distinct cards beside cuda:0 repeated."""
+    import torch
+
+    from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.ops import fb_kernel, fb_product_kernel
+    from vbx_tpu_torch.parallel import make_mesh
+    from vbx_tpu_torch.parallel.dryrun import dryrun_multichip
+    from vbx_tpu_torch.testing import write_corpus
+
+    n_cards = torch.cuda.device_count()
+    fb_kernel.fb_fused_sb.launches = 0
+    fb_product_kernel.fb_fwd_product_sb.launches = 0
+    t0 = time.perf_counter()
+    if n_cards >= 2:
+        dry = dryrun_multichip(n_cards)
+    else:
+        dry = dryrun_multichip(4, devices=["cuda:0"] * 4)
+    _sync_all()
+    dry.update(seconds=time.perf_counter() - t0,
+               k1_launches=fb_kernel.fb_fused_sb.launches,
+               k2_launches=fb_product_kernel.fb_fwd_product_sb.launches)
+    if dry["k1_launches"] < 1 or dry["k2_launches"] < 1:
+        fail(f"dryrun_multichip: K1 launched {dry['k1_launches']} times, "
+             f"K2 {dry['k2_launches']} times")
+    out = {"cards": n_cards, "c": dry}
+    if n_cards < 2:
+        out["d"] = None
+        return out
+    n_sp = 4 if n_cards >= 4 else 2
+    corpus = write_corpus(os.path.join(work, "long"), 11, MESH_LENGTHS,
+                          [MESH_SPEAKERS] * len(MESH_LENGTHS))
+    cfg = get_preset("example").replace(init=f"random_{MESH_SPEAKERS}+VB")
+    cards = [torch.device("cuda", i) for i in range(n_sp)]
+    d = mesh_em_ms(corpus, cfg, {
+        "distinct": make_mesh(1, n_sp, devices=cards),
+        "repeated": make_mesh(1, n_sp, devices=[cards[0]] * n_sp)})
+    # the same shards and kernels on other cards: the same bits
+    g = d.pop("gamma")
+    if not torch.equal(g["distinct"], g["repeated"]):
+        fail(f"mesh EM over distinct cards differs from cuda:0 repeated by "
+             f"{float((g['distinct'] - g['repeated']).abs().max())}")
+    out["d"] = d
+    return out
+
+
+def print_multi_host(mh: dict) -> None:
+    st = mh["startup_s"]
+    a = mh["a"]
+    for n_proc in (1, 2):
+        r = a[n_proc]
+        print(f"multi-host (a) diarization stage, callhome (K1 bfloat16), "
+              f"{N_RECORDINGS} recordings, {n_proc} process(es) on cuda:0: "
+              f"{r['diarization_s']:.2f} s, K1 launches {r['k1_launches']}; "
+              f"score stage (one process, host) {r['score_s']:.2f} s")
+    print(f"multi-host (a): the stage times are wall seconds from spawn to "
+          f"the last exit, each process's start-up and CUDA initialization "
+          f"included ({st:.2f} s for a process that imports the port and "
+          f"initializes cuda:0); all.rttm of 2 processes byte-equal to 1 "
+          f"process; score lines equal: {' | '.join(a[1]['score'])}")
+    b = mh["b"]
+    how = ("x-vectors byte-equal" if b["byte_equal"] else
+           f"x-vectors not byte-equal: cosine >= {b['cos_min']:.8f}, max "
+           f"abs error / max {b['err']:.3g} (bar {XV_SPLIT_COS}, "
+           f"{XV_SPLIT_ERR})")
+    print(f"multi-host (b) xvectors stage, ami_mixheadset, "
+          f"{len(EXTRACT_SECONDS)} x {EXTRACT_SECONDS[0]:.0f} s at "
+          f"{EXTRACT_FS} Hz, seeded ResNet101 ({b['windows']} windows): 1 "
+          f"process {b['s_1']:.2f} s, 2 processes {b['s_2']:.2f} s (start-up "
+          f"and CUDA initialization included); keys and segments "
+          f"byte-equal; {how}; phase {mh['seconds']:.1f} s")
+
+
+def print_multi_card(mc: dict) -> None:
+    c = mc["c"]
+    where = ("every visible card" if mc["cards"] >= 2 else
+             f"cuda:0 repeated 4 times ({mc['cards']} card visible)")
+    print(f"multi-card (c) dryrun_multichip over {where}: mesh {c['mesh']} "
+          f"on {c['devices']}: {', '.join(c['checks'])} held; K1 launches "
+          f"{c['k1_launches']}, K2 launches {c['k2_launches']}; "
+          f"{c['seconds']:.2f} s")
+    d = mc["d"]
+    if d is None:
+        print(f"multi-card (d) not run: {mc['cards']} card visible, and the "
+              f"mesh EM over distinct cards needs at least 2 (a missing "
+              f"device, not a caught failure)")
+    else:
+        ms = d["ms_per_iter"]
+        print(f"multi-card (d) EM at B,T,S,D={d['shape']} (pallas, "
+              f"{d['iters']} iterations): mesh {d['meshes']['distinct']} over "
+              f"{d['devices']['distinct']} {ms['distinct']} ms/iter; the "
+              f"same mesh over cuda:0 repeated {ms['repeated']} ms/iter, "
+              f"gamma bit-equal; solo {ms['solo']} ms/iter")
 
 
 def main() -> int:
@@ -2328,9 +2671,9 @@ def main() -> int:
               f"truth {r['agreement_vs_truth']:.4f}{vs_solo}")
     em = mp["em"]
     print(f"EM at B,T,S,D={em['shape']} (pallas, {em['iters']} iterations): "
-          f"mesh {em['mesh']} {em['mesh_ms_per_iter']} ms/iter, solo "
-          f"{em['solo_ms_per_iter']} ms/iter (one card: the mesh's four "
-          f"shards run one after another on one stream)")
+          f"mesh {em['meshes']['1x4']} {em['ms_per_iter']['1x4']} ms/iter, "
+          f"solo {em['ms_per_iter']['solo']} ms/iter (cuda:0 repeated: the "
+          f"mesh's four shards run one after another on one stream)")
 
     ck = mp["checkpointed"]
     print(f"checkpointed mesh form ({ck['fb_impl']}, {ck['dtype']}): stopped "
@@ -2490,6 +2833,10 @@ def main() -> int:
           f"inline {h['inline_ms']:.0f} ms, ark, wav {h['wav_ms']:.0f} ms "
           f"({h['wav_speakers']} speakers) answered 200, overload 503, "
           f"SIGTERM drained; phase {sp['seconds']:.1f} s")
+
+    with tempfile.TemporaryDirectory() as work:
+        print_multi_host(multi_host_path(work))
+        print_multi_card(multi_card_path(work))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

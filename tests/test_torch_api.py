@@ -200,3 +200,25 @@ def test_devices_module_has_the_probe_and_the_pick():
     for name in ("probe_accelerator", "pick_backend", "main"):
         assert callable(getattr(jdev, name)) and callable(getattr(tdev,
                                                                   name))
+
+
+def test_distributed_module_has_vbx_tpus_functions():
+    """vbx_tpu_torch.parallel.distributed has vbx_tpu's initialize and
+    local_recording_slice, with the same parameters; diarize_ark takes
+    shard_over_hosts where vbx_tpu's does."""
+    import inspect
+
+    jd = importlib.import_module("vbx_tpu.parallel.distributed")
+    td = importlib.import_module("vbx_tpu_torch.parallel.distributed")
+    for name in ("initialize", "local_recording_slice"):
+        jsig = inspect.signature(getattr(jd, name))
+        tsig = inspect.signature(getattr(td, name))
+        assert list(tsig.parameters) == list(jsig.parameters), name
+        assert [p.default for p in tsig.parameters.values()] == \
+            [p.default for p in jsig.parameters.values()], name
+    for name in ("process_index", "process_count", "barrier"):
+        assert callable(getattr(td, name)), name
+    jp = list(inspect.signature(jpipe.diarize_ark).parameters)
+    tp = list(inspect.signature(tpipe.diarize_ark).parameters)
+    assert jp[:jp.index("shard_over_hosts") + 1] == \
+        tp[:tp.index("shard_over_hosts") + 1]

@@ -237,6 +237,24 @@ def test_sharded_kernel_route_on_a_card_matches_cpu_route():
 
 
 @pytest.mark.gpu
+def test_dryrun_multichip_on_the_cards():
+    """vbx_tpu's multi-device dryrun over the visible cards (cuda:0 four
+    times on a one-card machine): its four checks hold, and its kernel
+    route launched K2 and K1."""
+    _need_card()
+    from vbx_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    n_cards = torch.cuda.device_count()
+    devices = (None if n_cards >= 2 else ["cuda:0"] * 4)
+    n = n_cards if n_cards >= 2 else 4
+    n1, n2 = fb_kernel.fb_fused_sb.launches, k2.fb_fwd_product_sb.launches
+    out = dryrun_multichip(n, devices=devices)
+    assert len(out["checks"]) == 4 and len(out["devices"]) == n
+    assert fb_kernel.fb_fused_sb.launches > n1
+    assert k2.fb_fwd_product_sb.launches > n2
+
+
+@pytest.mark.gpu
 def test_sharded_kernel_route_past_k2_cap_raises_on_a_card():
     """On a card the sharded kernel route never leaves the kernels: past
     K2's S_MAX speakers it raises (the CPU warns and runs structured)."""

@@ -516,3 +516,29 @@ def test_make_mesh_devices_and_errors():
     assert all(torch.equal(g, torch.stack(xs)) for g in rep.all_gather(xs))
     with pytest.raises(ValueError, match="one tensor per shard"):
         rep.psum(xs[:3])
+
+
+# ---- 10. the multi-device dryrun -------------------------------------------
+
+@pytest.mark.parametrize("n,mesh_shape", [(4, {"dp": 2, "sp": 2}),
+                                          (8, {"dp": 4, "sp": 2}),
+                                          (3, {"dp": 3, "sp": 1})])
+def test_dryrun_multichip_holds_its_four_checks_on_cpu_copies(n, mesh_shape):
+    """vbx_tpu's __graft_entry__ dryrun on n CPU copies: the structured and
+    kernel routes (the twins here), the two-slice checkpointed run equal to
+    the one-shot run, and the mesh service equal to the solo service."""
+    from vbx_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(n, device="cpu")
+    assert out == {"mesh": mesh_shape, "devices": ["cpu"] * n,
+                   "checks": ["structured", "kernel+plateau",
+                              "checkpointed", "serving"]}
+
+
+def test_dryrun_multichip_takes_a_device_list_and_needs_enough():
+    from vbx_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(2, devices=["cpu", "cpu", "cpu"])
+    assert out["mesh"] == {"dp": 1, "sp": 2} and len(out["devices"]) == 2
+    with pytest.raises(ValueError, match="need 2 devices, have 1"):
+        dryrun_multichip(2, devices=["cpu"])

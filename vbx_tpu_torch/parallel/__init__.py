@@ -4,8 +4,10 @@ smoothers, and the sharded VB-HMM engine. Recordings run data-parallel
 over 'dp'; the frames of one recording run sequence-parallel over 'sp',
 the long-recording path.
 
-vbx_tpu's multi-host pieces (parallel/distributed.py, shard_over_hosts)
-are not ported yet.
+parallel.distributed joins the processes of a multi-host corpus run (a
+gloo process group: `initialize`, `local_recording_slice`, `barrier`), and
+parallel.dryrun holds the mesh engine, its kernel route, the checkpointed
+engine and the service to their one-device answers on n devices.
 """
 
 from vbx_tpu_torch.parallel.engine import ShardedVBxResult, vbx_sharded
