@@ -150,9 +150,16 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    EM (B=4, T=32768, S=8) on a 1x4 (1x2 with two or three cards) mesh of
    distinct cards beside the same mesh of cuda:0 repeated and the solo
    engine; with one card a line says that (d) did not run and why;
-11. one JSON line listing every ported kernel with its numbers, the total
+11. bench_torch.py, the port's counterpart of bench.py, as a subprocess
+   (BENCH_TIMEOUT): VB at B=256, T=1025, S=31, D=128 from the bench
+   recording's init chain, 'pallas' and 'pallas_bf16' under its guard, the
+   reference baseline and the warm e2e of phase 4's corpus; its JSON line
+   is printed, and the phase fails unless it exits 0 with the bench
+   shape, a kernel route as headline_impl, K1 launched, value and
+   vs_baseline above 0 and e2e agreement >= 0.95;
+12. one JSON line listing every ported kernel with its numbers, the total
    seconds;
-12. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+13. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Without a card, or outside a checkout, it exits non-zero before printing
 any result.
@@ -192,7 +199,7 @@ SCAN_BARS = {"ahat": 2e-5, "bhat_normalized": 2e-5, "cfw_rel": 1e-5}
 # in float32. The bar is tests/test_forward_backward.py's for the assoc
 # form at long T; float64 is held at 1e-9.
 ASSOC_F32_BAR = 2e-3
-N_RECORDINGS = 64
+N_RECORDINGS = 64           # vbx_tpu_torch.testing.MAIN_PATH_RECORDINGS
 MESH_LENGTHS = (32768, 30000, 24000, 17000)
 MESH_SPEAKERS = 8
 # mesh vs solo label agreement bars
@@ -216,6 +223,9 @@ FEATURE_F32_BAR = 1e-3
 STAGE_TIMEOUT = 600
 XV_SPLIT_COS = 0.9999999
 XV_SPLIT_ERR = 8.9e-7
+# bench_torch.py (phase 11): seconds it may take; the e2e agreement bar
+BENCH_TIMEOUT = 600
+BENCH_E2E_AGREEMENT = 0.95
 
 
 def fail(msg: str) -> None:
@@ -900,26 +910,17 @@ def diarize(corpus, out_dir, config, device, fb_impl=None, mesh=None):
                        mesh=mesh)
 
 
-def corpus_agreement(truth, outputs) -> float:
-    from vbx_tpu_torch.testing import frame_agreement
-
-    frames = agree = 0
-    for rec, ref in truth.items():
-        frames += len(ref)
-        agree += len(ref) * frame_agreement(ref, outputs[rec].labels1st)
-    return agree / frames
-
-
 def main_path(work: str) -> dict:
     import torch
 
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.engine.pipeline import resolve_fb_impl
     from vbx_tpu_torch.ops import fb_kernel
-    from vbx_tpu_torch.testing import write_corpus
+    from vbx_tpu_torch.testing import (corpus_agreement, main_path_corpus,
+                                       write_corpus)
 
     t0 = time.perf_counter()
-    corpus = smoke_corpus(work)
+    corpus = main_path_corpus(os.path.join(work, "corpus"))
     out = {"corpus": {"recordings": N_RECORDINGS,
                       "x_vectors": int(sum(len(z) for z in
                                            corpus["truth"].values())),
@@ -1001,19 +1002,6 @@ def bench_vb_args():
 
 BENCH_VB_KW = dict(loop_prob=0.99, Fa=0.3, Fb=17.0, max_iters=40,
                    epsilon=1e-6, device="cuda")
-
-
-def smoke_corpus(work: str):
-    """The main path's synthetic corpus (seed 7, N_RECORDINGS recordings,
-    T 500-2000, 2-6 speakers)."""
-    import numpy as np
-
-    from vbx_tpu_torch.testing import write_corpus
-
-    rng = np.random.default_rng(7)
-    lengths = rng.integers(500, 2001, N_RECORDINGS)
-    speakers = rng.integers(2, 7, N_RECORDINGS)
-    return write_corpus(os.path.join(work, "corpus"), 7, lengths, speakers)
 
 
 def vb_throughput(fb_impl: str) -> dict:
@@ -1585,7 +1573,7 @@ def mesh_path(work: str) -> dict:
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.ops import fb_kernel, fb_product_kernel
     from vbx_tpu_torch.parallel import make_mesh
-    from vbx_tpu_torch.testing import write_corpus
+    from vbx_tpu_torch.testing import corpus_agreement, write_corpus
 
     t0 = time.perf_counter()
     corpus = write_corpus(os.path.join(work, "long"), 11, MESH_LENGTHS,
@@ -2060,10 +2048,11 @@ def serving_path(work: str) -> dict:
                                            write_segments)
     from vbx_tpu_torch.ops import fb_kernel
     from vbx_tpu_torch.serving import DiarizationService
-    from vbx_tpu_torch.testing import synth_recording, write_audio_corpus
+    from vbx_tpu_torch.testing import (main_path_corpus, synth_recording,
+                                       write_audio_corpus)
 
     t_phase = time.perf_counter()
-    corpus = smoke_corpus(work)
+    corpus = main_path_corpus(os.path.join(work, "corpus"))
     cfg = get_preset("callhome")      # a corpus preset: 'pallas_bf16'
     ref = diarize(corpus, os.path.join(work, "offline"), cfg, "cuda",
                   "pallas")
@@ -2333,13 +2322,14 @@ def multi_host_path(work: str) -> dict:
 
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.io.ark import iter_vec_ark
-    from vbx_tpu_torch.testing import write_audio_corpus, write_truth_rttms
+    from vbx_tpu_torch.testing import (main_path_corpus, write_audio_corpus,
+                                       write_truth_rttms)
 
     t_phase = time.perf_counter()
     out = {"startup_s": startup_s()}
 
     # (a) diarization and score stages on phase 4's corpus, callhome
-    corpus = smoke_corpus(work)
+    corpus = main_path_corpus(os.path.join(work, "corpus"))
     refs = os.path.join(work, "refs")
     write_truth_rttms(refs, corpus["truth"])
     names = sorted(corpus["truth"])
@@ -2527,6 +2517,39 @@ def print_multi_card(mc: dict) -> None:
               f"{d['devices']['distinct']} {ms['distinct']} ms/iter; the "
               f"same mesh over cuda:0 repeated {ms['repeated']} ms/iter, "
               f"gamma bit-equal; solo {ms['solo']} ms/iter")
+
+
+def bench_phase() -> dict:
+    """Phase 11: `python3 bench_torch.py` in a process of its own, ended
+    if it runs past BENCH_TIMEOUT (module docstring)."""
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable,
+                              os.path.join(HERE, "bench_torch.py")],
+                             cwd=HERE, capture_output=True, text=True,
+                             timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"bench_torch.py ran past {BENCH_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"bench_torch.py exited {res.returncode}: {res.stderr[-4000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    want = [BENCH["B"], BENCH["T"], BENCH["S"], BENCH["D"]]
+    if line["shape"] != want:
+        fail(f"bench_torch.py ran shape {line['shape']}, not {want}")
+    if line["headline_impl"] not in ("pallas", "pallas_bf16"):
+        fail(f"bench_torch.py headline_impl {line['headline_impl']!r}")
+    if not line["k1_launches"] > 0:
+        fail(f"bench_torch.py launched K1 {line['k1_launches']} times")
+    if not (line["value"] > 0 and line["vs_baseline"] > 0):
+        fail(f"bench_torch.py value {line['value']}, vs_baseline "
+             f"{line['vs_baseline']}")
+    if not line["e2e_agreement"] >= BENCH_E2E_AGREEMENT:
+        fail(f"bench_torch.py e2e agreement {line['e2e_agreement']}")
+    if not line["guard"][line["headline_impl"]]["ok"]:
+        fail(f"bench_torch.py headline failed its guard: {line['guard']}")
+    return {"line": line, "seconds": secs,
+            "log": " | ".join(res.stderr.strip().splitlines())}
 
 
 def main() -> int:
@@ -2837,6 +2860,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         print_multi_host(multi_host_path(work))
         print_multi_card(multi_card_path(work))
+
+    bp = bench_phase()
+    print(f"bench_torch.py ({bp['seconds']:.1f} s): {bp['log']}")
+    print(f"bench_torch.py: {json.dumps(bp['line'])}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

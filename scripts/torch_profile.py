@@ -10,7 +10,7 @@ Run from the root of a checkout on a machine with a CUDA card. Five parts
    streams) at chip_smoke.py's bench shape, B=256, T=1025, S=31, D=128:
    one warm run under torch.profiler, device time by kernel (self CUDA
    time summed per name) and the device busy share of the run's wall;
-2. e2e: ark -> RTTM on chip_smoke.py's 64-recording synthetic corpus
+2. e2e: ark -> RTTM on the main path's 64-recording synthetic corpus
    (`diarize_ark`, f32 kernel route), warm: the pipeline's own stage
    timings (host init pool, VB left after init) from its runlog, and the
    device busy share over the whole run from torch.profiler;
@@ -122,12 +122,12 @@ def part_vb(out):
 
 
 def part_e2e(out):
-    import chip_smoke
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.engine.pipeline import diarize_ark
+    from vbx_tpu_torch.testing import main_path_corpus
 
     with tempfile.TemporaryDirectory() as work:
-        corpus = chip_smoke.smoke_corpus(work)
+        corpus = main_path_corpus(os.path.join(work, "corpus"))
         runlog = os.path.join(work, "runlog.jsonl")
 
         def run(tag):

@@ -779,3 +779,21 @@ def test_service_on_a_card_matches_the_offline_pipeline(tmp_path):
         np.testing.assert_array_equal(res_k[rec].labels1st,
                                       off[rec].labels1st)
         assert res[rec].n_speakers >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fb_impl", ["pallas", "pallas_bf16"])
+def test_bench_device_passes_the_guard_on_a_card(fb_impl):
+    """bench_torch.py's VB stage at B=8 on the card: 5 surviving
+    speakers, the truth on the main speakers' frames, every lane equal to
+    lane 0, and K1 launched in the timed runs."""
+    _need_card()
+    import bench_torch
+    from vbx_tpu_torch.config import get_preset
+
+    cfg = get_preset("example")
+    fea, phi, qinit, truth = bench_torch.prepare_inputs(cfg, "cuda")
+    r = bench_torch.bench_device(fea, phi, qinit, bench_torch.vb_hp(cfg),
+                                 fb_impl, truth, B=8, repeats=2)
+    assert r["guard"]["ok"], r["guard"]
+    assert r["k1_launches"] >= 2 * r["iters"] > 0

@@ -54,7 +54,7 @@ def _imports(path):
 @pytest.mark.parametrize("rel", sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    + ["chip_smoke.py", "scripts/torch_ab_fb_kernels.py",
+    + ["bench_torch.py", "chip_smoke.py", "scripts/torch_ab_fb_kernels.py",
        "scripts/torch_profile.py", "scripts/torch_fb_scan_tuning.py",
        "scripts/torch_fb_fused_tuning.py", "scripts/kernel_bounds.py"]))
 def test_no_jax_or_vbx_tpu_import_in_source(rel):

@@ -17,7 +17,9 @@ _DEVICE_LINKAGE_MIN_N) have their NN-chain walks and calibration sweeps
 batched, one walk launch and one sweep per size group
 (vbx_tpu/engine/pipeline.py:508-599).
 
-Not ported yet: `shard_over_hosts`.
+`diarize_ark(shard_over_hosts=True)` splits the corpus over the processes
+of a gloo group (parallel.distributed): each host diarizes its contiguous
+slice of the recordings, and process 0 concatenates their RTTMs.
 """
 
 from __future__ import annotations

@@ -10,6 +10,9 @@ centres N(0, 0.4^2 I) in 256 dims, a speaker change with probability 0.02
 per x-vector, N(0, 0.6^2 I) noise, rows length-normalized. The transform
 (mean1, lda, mean2) is an LDA and the PLDA (mu, tr, psi) a two-covariance
 model, both estimated on a training set drawn from that generator.
+`main_path_corpus` writes the 64-recording corpus that chip_smoke.py and
+bench_torch.py share, and `write_bench_recording` bench_torch.py's
+ES2005a-shaped recording.
 """
 
 from __future__ import annotations
@@ -107,6 +110,29 @@ def write_transform(path: str, mean1: np.ndarray, lda: np.ndarray,
     write_datasets(path, {"mean1": mean1, "lda": lda, "mean2": mean2})
 
 
+def _write_recordings(out_dir: str, plda, transform,
+                      xs: Dict[str, np.ndarray]) -> Dict[str, str]:
+    """Write the models and the recordings' x-vectors (ark + segments,
+    one x-vector every X_SHIFT s) under `out_dir`; returns the paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {k: os.path.join(out_dir, f) for k, f in (
+        ("ark", "xvectors.ark"), ("segments", "segments"),
+        ("plda", "plda"), ("transform", "transform.h5"))}
+    write_plda(paths["plda"], *plda)
+    write_transform(paths["transform"], *transform)
+    records: List[Tuple[str, np.ndarray]] = []
+    rows = []
+    for rec, x in xs.items():
+        for i in range(len(x)):
+            name = f"{rec}_{i:05d}"
+            records.append((name, x[i]))
+            start = round(i * X_SHIFT, 3)
+            rows.append((name, rec, start, round(start + X_WINDOW, 3)))
+    write_vec_ark(paths["ark"], records)
+    write_segments(paths["segments"], rows)
+    return paths
+
+
 def write_corpus(out_dir: str, seed: int, lengths: Sequence[int],
                  speakers: Sequence[int]) -> Dict[str, object]:
     """Write a synthetic corpus: one recording per (T, K) pair.
@@ -115,28 +141,75 @@ def write_corpus(out_dir: str, seed: int, lengths: Sequence[int],
     "truth": {recording: true speaker index per x-vector},
     "models": (plda tuple, transform tuple)}."""
     rng = np.random.default_rng(seed)
-    os.makedirs(out_dir, exist_ok=True)
     plda, transform = synth_models(rng)
-    paths = {k: os.path.join(out_dir, f) for k, f in (
-        ("ark", "xvectors.ark"), ("segments", "segments"),
-        ("plda", "plda"), ("transform", "transform.h5"))}
-    write_plda(paths["plda"], *plda)
-    write_transform(paths["transform"], *transform)
-    records: List[Tuple[str, np.ndarray]] = []
-    rows = []
-    truth = {}
+    xs, truth = {}, {}
     for r, (T, K) in enumerate(zip(lengths, speakers)):
         rec = f"rec{r:03d}"
-        x, z = synth_recording(rng, int(T), int(K))
-        truth[rec] = z
-        for i in range(int(T)):
-            name = f"{rec}_{i:05d}"
-            records.append((name, x[i]))
-            start = round(i * X_SHIFT, 3)
-            rows.append((name, rec, start, round(start + X_WINDOW, 3)))
-    write_vec_ark(paths["ark"], records)
-    write_segments(paths["segments"], rows)
+        xs[rec], truth[rec] = synth_recording(rng, int(T), int(K))
+    paths = _write_recordings(out_dir, plda, transform, xs)
     return {**paths, "truth": truth, "models": (plda, transform)}
+
+
+MAIN_PATH_RECORDINGS = 64
+
+
+def main_path_corpus(out_dir: str) -> Dict[str, object]:
+    """The main path's synthetic corpus (seed 7, MAIN_PATH_RECORDINGS
+    recordings, T 500-2000, 2-6 speakers) in `out_dir`: chip_smoke.py's
+    phases and bench_torch.py's e2e stage run the same files."""
+    rng = np.random.default_rng(7)
+    lengths = rng.integers(500, 2001, MAIN_PATH_RECORDINGS)
+    speakers = rng.integers(2, 7, MAIN_PATH_RECORDINGS)
+    return write_corpus(out_dir, 7, lengths, speakers)
+
+
+# The bench recording, shaped like the reference's ES2005a (1025
+# x-vectors; the example preset's AHC gives 31 clusters, VB keeps 5): 5
+# main speakers drawn as synth_recording draws them, overwritten in
+# BENCH_BURSTS places by a short burst of 3-6 x-vectors, each burst at a
+# centre of its own (one burst in each of BENCH_BURSTS equal slots of the
+# recording, at a random offset in it).
+BENCH_T = 1025
+BENCH_SPEAKERS = 5
+BENCH_BURSTS = 26
+# On this seed the example preset's host f64 AHC gives 31 clusters, and
+# the float64 structured VB keeps 5 speakers after 17 iterations (13 in
+# float32 on the kernel route; the reference's ES2005a: 31 clusters, 5
+# survivors, 13 iterations).
+BENCH_SEED = 120
+
+
+def bench_recording(rng: np.random.Generator):
+    """(x [BENCH_T, 256] float32 unit rows, true speaker index [BENCH_T]
+    (bursts are speakers BENCH_SPEAKERS...), mask of the main speakers'
+    frames [BENCH_T])."""
+    x, z = synth_recording(rng, BENCH_T, BENCH_SPEAKERS)
+    D = x.shape[1]
+    slot = BENCH_T // BENCH_BURSTS
+    for b in range(BENCH_BURSTS):
+        n = int(rng.integers(3, 7))
+        start = b * slot + int(rng.integers(0, slot - n + 1))
+        centre = rng.standard_normal(D) * 0.4
+        xb = centre + 0.6 * rng.standard_normal((n, D))
+        x[start:start + n] = xb / np.linalg.norm(xb, axis=1, keepdims=True)
+        z[start:start + n] = BENCH_SPEAKERS + b
+    return x, z, z < BENCH_SPEAKERS
+
+
+def write_bench_recording(out_dir: str, seed: int = BENCH_SEED
+                          ) -> Dict[str, object]:
+    """Write the bench recording as a one-recording corpus in
+    write_corpus's layout (ark, segments, Kaldi PLDA, transform.h5, the
+    models drawn first from `seed`'s generator) plus its truth RTTM under
+    `out_dir`/truth. Returns write_corpus's dict with "main": the mask of
+    the main speakers' frames."""
+    rng = np.random.default_rng(seed)
+    plda, transform = synth_models(rng)
+    x, z, main = bench_recording(rng)
+    paths = _write_recordings(out_dir, plda, transform, {"bench": x})
+    write_truth_rttms(os.path.join(out_dir, "truth"), {"bench": z})
+    return {**paths, "truth": {"bench": z}, "main": main,
+            "models": (plda, transform)}
 
 
 AUDIO_VOICES = 3   # harmonic "voices" of synth_audio
@@ -230,6 +303,17 @@ def frame_agreement(ref: np.ndarray, hyp: np.ndarray) -> float:
             used.add(a)
     return float(np.mean([mapping.get(b) == a
                           for a, b in zip(ref.tolist(), hyp.tolist())]))
+
+
+def corpus_agreement(truth: Dict[str, np.ndarray], outputs) -> float:
+    """frame_agreement pooled over a corpus's frames: `truth` maps each
+    recording to its true labels, `outputs` to a result with labels1st
+    (diarize_ark's DiarizationOutput)."""
+    frames = agree = 0
+    for rec, ref in truth.items():
+        frames += len(ref)
+        agree += len(ref) * frame_agreement(ref, outputs[rec].labels1st)
+    return agree / frames
 
 
 @contextlib.contextmanager
