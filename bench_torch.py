@@ -40,7 +40,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,15 +63,6 @@ E2E_AGREEMENT = 0.95               # stands where bench.py's DER 7.06 stands
 
 def log(*a):
     print(*a, file=sys.stderr, flush=True)
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def _sync(device) -> None:
@@ -385,6 +375,7 @@ def main(argv=None) -> int:
             "to run the benchmark on the CPU explicitly")
         return 2
     from vbx_tpu_torch.config import get_preset
+    from vbx_tpu_torch.utils.devices import card_line
 
     cfg = get_preset("example")                   # run_example.sh:30-34
     hp = vb_hp(cfg)

@@ -157,9 +157,31 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    is printed, and the phase fails unless it exits 0 with the bench
    shape, a kernel route as headline_impl, K1 launched, value and
    vs_baseline above 0 and e2e agreement >= 0.95;
-12. one JSON line listing every ported kernel with its numbers, the total
+12. the measurement drivers of scripts/ (torch_serving_bench.py,
+   torch_extractor_bench.py, torch_ami_scale_bench.py,
+   torch_linkage_scale_bench.py, torch_scaling_bench.py), each as a
+   subprocess on the card (DRIVER_TIMEOUT), at the sizes of DRIVER_RUNS,
+   cut from the drivers' full sizes to keep the phase near three minutes:
+   serving N = 128 requests from K = 16 threads, and the partial-launch
+   ABBA (--ab) at N = 32 (full size N = 256), both on the kernel route
+   'pallas' (the example preset's own engine on a card is the structured
+   smoother, a host loop of launches a frame: ~40 s of bucket warm-up a
+   service); the extractor's precision A/B on 1 minute of audio (full
+   size 4); the AMI-scale corpus at full size (18 meetings of 8-11k
+   x-vectors) with --check-meetings 2: its first two meetings run again on
+   the CPU's structured engine and must agree with the card's labels on
+   >= 99% of frames (scripts/ab_corpus_engine.py's bar); the host chain at
+   N = 10000, condensed and --ondemand (full size 10k / 20k / 50k);
+   scaling at T = 1024 and one timed run a mesh (full size T = 4096, the
+   median of 5; one card is cuda:0 repeated 4 times). Each must exit 0
+   (its own checks: the serving warm-up's 5 speakers and labels equal to
+   diarize_ark's, every mesh's labels >= 99.5% equal to the solo
+   engine's) and print its JSON line naming the card; the phase prints
+   the drivers' lines and its seconds. The kernels line is unchanged: the
+   drivers add no kernel;
+13. one JSON line listing every ported kernel with its numbers, the total
    seconds;
-13. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+14. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Without a card, or outside a checkout, it exits non-zero before printing
 any result.
@@ -226,6 +248,29 @@ XV_SPLIT_ERR = 8.9e-7
 # bench_torch.py (phase 11): seconds it may take; the e2e agreement bar
 BENCH_TIMEOUT = 600
 BENCH_E2E_AGREEMENT = 0.95
+# the measurement drivers (phase 12): (tag, script and arguments, a line
+# of the JAX driver's that its stdout must hold), the seconds one may take,
+# and the AMI-scale gate (scripts/ab_corpus_engine.py:8's bar)
+DRIVER_RUNS = (
+    ("serving", ["torch_serving_bench.py", "128", "16", "pallas"],
+     r"^served 128 requests in .* req/s; latency p50="),
+    ("serving --ab", ["torch_serving_bench.py", "32", "16", "pallas",
+                      "--ab"],
+     r"^A/B p95: off \d+ms vs partial \d+ms"),
+    ("extractor", ["torch_extractor_bench.py", "1"],
+     r"^downstream AHC labels identical: "),
+    ("ami_scale", ["torch_ami_scale_bench.py", "--check-meetings", "2"],
+     r"^stages: init="),
+    ("linkage", ["torch_linkage_scale_bench.py", "10000"],
+     r"^N=10000 \[condensed\]: .* -> TOTAL"),
+    ("linkage --ondemand", ["torch_linkage_scale_bench.py", "10000",
+                            "--ondemand"],
+     r"^N=10000 \[ondemand\(O\(N\*D\)\)\]: .* -> TOTAL"),
+    ("scaling", ["torch_scaling_bench.py", "--T", "1024", "--reps", "1"],
+     r'^\{"platform": "gpu"'),
+)
+DRIVER_TIMEOUT = 600
+AMI_CHECK_AGREEMENT = 0.99
 
 
 def fail(msg: str) -> None:
@@ -2552,6 +2597,51 @@ def bench_phase() -> dict:
             "log": " | ".join(res.stderr.strip().splitlines())}
 
 
+def drivers_phase(card: str) -> dict:
+    """Phase 12: every DRIVER_RUNS entry as `python3 scripts/<script>` in
+    a process of its own, ended if it runs past DRIVER_TIMEOUT (module
+    docstring). Returns {tag: {"seconds", "lines" (stdout but the JSON
+    line), "line" (the JSON line)}, "seconds": the phase's}."""
+    import re
+
+    t_phase = time.perf_counter()
+    out = {}
+    for tag, argv, want in DRIVER_RUNS:
+        cmd = [sys.executable, os.path.join(HERE, "scripts", argv[0]),
+               *argv[1:]]
+        t0 = time.perf_counter()
+        try:
+            res = subprocess.run(cmd, cwd=HERE, capture_output=True,
+                                 text=True, timeout=DRIVER_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            fail(f"driver {tag} ran past {DRIVER_TIMEOUT} s")
+        secs = time.perf_counter() - t0
+        if res.returncode != 0:
+            fail(f"driver {tag} exited {res.returncode}: "
+                 f"{res.stderr[-3000:]}")
+        lines = res.stdout.strip().splitlines()
+        if not any(re.search(want, ln) for ln in lines):
+            fail(f"driver {tag} printed no line matching {want!r}: "
+                 f"{res.stdout[-2000:]}")
+        line = json.loads(lines[-1])
+        if line["device"] != card:
+            fail(f"driver {tag} measured on {line['device']!r}, not the "
+                 f"card {card!r}")
+        out[tag] = {"seconds": secs, "lines": lines[:-1], "line": line}
+    check = out["ami_scale"]["line"]["check_vs_cpu"]
+    if len(check) != 2 or min(check.values()) < AMI_CHECK_AGREEMENT:
+        fail(f"AMI-scale labels vs the CPU structured run: {check}")
+    rows = out["scaling"]["line"]["rows"]
+    if not rows or min(r["agreement_vs_solo"] for r in rows) < \
+            MESH_AGREE["pallas"]:
+        fail(f"scaling: a mesh disagrees with the solo engine: {rows}")
+    for tag in ("serving", "serving --ab"):
+        if out[tag]["line"]["failures"]:
+            fail(f"{tag}: {out[tag]['line']['failures']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2864,6 +2954,17 @@ def main() -> int:
     bp = bench_phase()
     print(f"bench_torch.py ({bp['seconds']:.1f} s): {bp['log']}")
     print(f"bench_torch.py: {json.dumps(bp['line'])}")
+
+    dp = drivers_phase(card)
+    for tag, argv, _ in DRIVER_RUNS:
+        r = dp[tag]
+        print(f"driver {tag} (python3 scripts/{' '.join(argv)}; "
+              f"{r['seconds']:.1f} s):")
+        for ln in r["lines"]:
+            print(f"  {ln}")
+    print(f"drivers: AMI-scale labels vs the CPU structured run "
+          f"{json.dumps(dp['ami_scale']['line']['check_vs_cpu'])}; phase "
+          f"{dp['seconds']:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

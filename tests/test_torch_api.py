@@ -222,3 +222,24 @@ def test_distributed_module_has_vbx_tpus_functions():
     tp = list(inspect.signature(tpipe.diarize_ark).parameters)
     assert jp[:jp.index("shard_over_hosts") + 1] == \
         tp[:tp.index("shard_over_hosts") + 1]
+
+
+@pytest.mark.parametrize("name", ["resnet101", "resnet34", "se_resnet34"])
+def test_resnet_constructors_take_vbx_tpus_arguments(name):
+    """models.resnet's constructors take vbx_tpu's parameters in vbx_tpu's
+    order, with precision=None (PyTorch's settings; 'highest' pins full
+    float32) as vbx_tpu's default; dtype is a torch dtype."""
+    import inspect
+
+    import torch
+
+    jr = importlib.import_module("vbx_tpu.models.resnet")
+    tr = importlib.import_module("vbx_tpu_torch.models.resnet")
+    jp = inspect.signature(getattr(jr, name)).parameters
+    tp = inspect.signature(getattr(tr, name)).parameters
+    assert list(tp) == list(jp)
+    assert tp["precision"].default is None is jp["precision"].default
+    assert tp["dtype"].default is torch.float32
+    assert getattr(tr, name)(feat_dim=8, embed_dim=4,
+                             precision="highest").precision == "highest"
+

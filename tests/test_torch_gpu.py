@@ -797,3 +797,36 @@ def test_bench_device_passes_the_guard_on_a_card(fb_impl):
                                  fb_impl, truth, B=8, repeats=2)
     assert r["guard"]["ok"], r["guard"]
     assert r["k1_launches"] >= 2 * r["iters"] > 0
+
+
+def _driver(name):
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_gpu_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,argv", [
+    ("torch_serving_bench", ["8", "2"]),
+    ("torch_extractor_bench", ["0.1"]),
+    ("torch_ami_scale_bench", ["--n-meetings", "1", "--frames", "300",
+                               "600", "--check-meetings", "1"]),
+    ("torch_linkage_scale_bench", ["2000"]),
+    ("torch_linkage_scale_bench", ["2000", "--ondemand"]),
+    ("torch_scaling_bench", ["--T", "256", "--reps", "1"])])
+def test_measurement_driver_on_a_card(name, argv, capsys, monkeypatch):
+    """Each scripts/torch_*_bench.py driver at its smallest size on the
+    card: it exits 0 (its own checks included) and its JSON line names
+    the card it measured on."""
+    _need_card()
+    import json
+
+    monkeypatch.setenv("SCALING_DEVICES", "2")
+    assert _driver(name).main(argv) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["device"] != "cpu", line

@@ -2,6 +2,7 @@
 its entry points never fall back to the CPU on their own."""
 
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -54,13 +55,13 @@ def _imports(path):
 @pytest.mark.parametrize("rel", sorted(
     [os.path.relpath(os.path.join(d, f), ROOT)
      for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py")]
-    + ["bench_torch.py", "chip_smoke.py", "scripts/torch_ab_fb_kernels.py",
-       "scripts/torch_profile.py", "scripts/torch_fb_scan_tuning.py",
-       "scripts/torch_fb_fused_tuning.py", "scripts/kernel_bounds.py"]))
+    + [os.path.relpath(p, ROOT)
+       for p in glob.glob(os.path.join(ROOT, "scripts", "torch_*.py"))]
+    + ["bench_torch.py", "chip_smoke.py", "scripts/kernel_bounds.py"]))
 def test_no_jax_or_vbx_tpu_import_in_source(rel):
     for name in _imports(os.path.join(ROOT, rel)):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "vbx_tpu", "flax"), \
+        assert top not in ("jax", "jaxlib", "vbx_tpu", "flax", "bench"), \
             f"{rel} imports {name}"
 
 

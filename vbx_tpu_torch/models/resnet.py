@@ -23,6 +23,15 @@ Two things follow vbx_tpu.models.resnet rather than the reference:
   statistics pool and the embedding stay float32, as in vbx_tpu's
   bfloat16 model. A BatchNorm whose output only a conv reads writes it in
   bfloat16 (the rounding that conv's input cast makes anyway).
+- `precision` is vbx_tpu's argument of the same name: 'highest' runs the
+  forward inside `device.full_fp32_matmuls` (TF32 off for cuDNN
+  convolutions and for matmuls: the counterpart of Precision.HIGHEST);
+  None leaves PyTorch's settings as the caller has them (by default cuDNN
+  convolutions may use TF32: the counterpart of XLA's DEFAULT). The TF32
+  flags are process-global, so 'highest' holds for every thread while a
+  forward runs, not for the calling thread alone.
+  `engine.extractor.XVectorExtractor` runs its whole extraction inside
+  `full_fp32_matmuls`, so there both values run at full float32.
 
 `convert_torch_state_dict` checks a reference state dict against the
 architecture (vbx_tpu's depth-strictness and error texts);
@@ -31,6 +40,7 @@ architecture (vbx_tpu's depth-strictness and error texts);
 
 from __future__ import annotations
 
+import contextlib
 import re
 import warnings
 from typing import Any, Dict, Optional, Sequence
@@ -40,7 +50,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vbx_tpu_torch.device import full_fp32_matmuls
+
 _BN_EPS = 1e-5
+PRECISIONS = (None, "highest")
+
+
+def _check_precision(precision: Optional[str]) -> Optional[str]:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    return precision
+
+
+def _at(precision: Optional[str]):
+    """The context a module's forward runs in: full float32 products for
+    'highest', the caller's settings for None."""
+    return full_fp32_matmuls() if precision == "highest" else \
+        contextlib.nullcontext()
 
 
 def _mask_time(y: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
@@ -93,8 +120,10 @@ class SELayer(nn.Module):
     global average pool -> bottleneck MLP (no biases) -> sigmoid channel
     scale. `mask` [B, T] restricts the squeeze to valid frames."""
 
-    def __init__(self, channels: int, reduction: int = 16):
+    def __init__(self, channels: int, reduction: int = 16,
+                 precision: Optional[str] = None):
         super().__init__()
+        self.precision = _check_precision(precision)
         self.fc = nn.Sequential(
             nn.Linear(channels, channels // reduction, bias=False),
             nn.ReLU(),
@@ -109,7 +138,8 @@ class SELayer(nn.Module):
         else:
             m = mask[:, None, None, :].float()
             y = (xf * m).sum(dim=(2, 3)) / (m.sum(dim=(2, 3)) * x.shape[2])
-        y = self.fc(y.to(self.fc[0].weight.dtype))
+        with _at(self.precision):
+            y = self.fc(y.to(self.fc[0].weight.dtype))
         return x * y[:, :, None, None].to(x.dtype)
 
 
@@ -120,15 +150,16 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 se_reduction: int = 0):
+                 se_reduction: int = 0, precision: Optional[str] = None):
         super().__init__()
         out_ch = planes * self.expansion
         self.stride = stride
+        self.precision = _check_precision(precision)
         self.conv1, self.bn1 = _conv_bn(in_planes, planes, 1)
         self.conv2, self.bn2 = _conv_bn(planes, planes, 3, stride)
         self.conv3, self.bn3 = _conv_bn(planes, out_ch, 1)
         if se_reduction:
-            self.se = SELayer(out_ch, se_reduction)
+            self.se = SELayer(out_ch, se_reduction, precision)
         self.shortcut = nn.Sequential()
         if stride != 1 or in_planes != out_ch:
             self.shortcut = nn.Sequential(*_conv_bn(in_planes, out_ch, 1,
@@ -139,6 +170,10 @@ class Bottleneck(nn.Module):
         """`in_mask` [B, T_in]: the valid-time mask at the INPUT
         resolution, applied after the first activation so that the 3x3
         conv reads exact zeros past the valid frames."""
+        with _at(self.precision):
+            return self._forward(x, in_mask)
+
+    def _forward(self, x, in_mask):
         y = _bn_relu_to_conv(self.bn1, _conv(self.conv1, x), in_mask)
         y = _bn_relu_to_conv(self.bn2, _conv(self.conv2, y))
         y = _bn(self.bn3, _conv(self.conv3, y))
@@ -158,13 +193,14 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 se_reduction: int = 0):
+                 se_reduction: int = 0, precision: Optional[str] = None):
         super().__init__()
         self.stride = stride
+        self.precision = _check_precision(precision)
         self.conv1, self.bn1 = _conv_bn(in_planes, planes, 3, stride)
         self.conv2, self.bn2 = _conv_bn(planes, planes, 3)
         if se_reduction:
-            self.se = SELayer(planes, se_reduction)
+            self.se = SELayer(planes, se_reduction, precision)
         self.shortcut = nn.Sequential()
         if stride != 1 or in_planes != planes:
             self.shortcut = nn.Sequential(*_conv_bn(in_planes, planes, 1,
@@ -174,6 +210,10 @@ class BasicBlock(nn.Module):
                 out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`out_mask` [B, T_out]: the valid-time mask at the OUTPUT
         resolution, applied between the two 3x3 convs."""
+        with _at(self.precision):
+            return self._forward(x, out_mask)
+
+    def _forward(self, x, out_mask):
         y = _bn_relu_to_conv(self.bn1, _conv(self.conv1, x), out_mask)
         y = _bn(self.bn2, _conv(self.conv2, y))
         if hasattr(self, "se"):
@@ -198,8 +238,10 @@ class ResNetXVector(nn.Module):
                  num_blocks: Sequence[int] = (3, 4, 23, 3),
                  m_channels: int = 32, feat_dim: int = 64,
                  embed_dim: int = 256, se_reduction: int = 0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 precision: Optional[str] = None):
         super().__init__()
+        self.precision = _check_precision(precision)
         self.block = block
         self.num_blocks = tuple(num_blocks)
         self.m_channels = m_channels
@@ -215,7 +257,8 @@ class ResNetXVector(nn.Module):
             blocks = []
             for bi in range(n):
                 blocks.append(block(in_planes, planes,
-                                    stride if bi == 0 else 1, se_reduction))
+                                    stride if bi == 0 else 1, se_reduction,
+                                    precision))
                 in_planes = planes * block.expansion
             setattr(self, f"layer{li}", nn.Sequential(*blocks))
         self.embedding = nn.Linear(2 * in_planes * pooled_freq(feat_dim),
@@ -232,6 +275,10 @@ class ResNetXVector(nn.Module):
         optional) marks each example's valid time prefix: frames past it
         are zeroed after every stage and the pool reads valid frames only,
         so a zero-padded example gives its unpadded embedding."""
+        with _at(self.precision):
+            return self._forward(x, lengths)
+
+    def _forward(self, x, lengths):
         y = x[:, None]                                  # [B, 1, F, T]
         cur_len = lengths
         mask = _time_mask(cur_len, y.shape[3])
@@ -267,27 +314,32 @@ class ResNetXVector(nn.Module):
 
 
 def resnet101(feat_dim: int = 64, embed_dim: int = 256,
-              dtype: torch.dtype = torch.float32) -> ResNetXVector:
+              dtype: torch.dtype = torch.float32,
+              precision: Optional[str] = None) -> ResNetXVector:
     """The reference's shipped extractor architecture
     (resnet.py:148-149)."""
     return ResNetXVector(Bottleneck, (3, 4, 23, 3), feat_dim=feat_dim,
-                         embed_dim=embed_dim, dtype=dtype)
+                         embed_dim=embed_dim, dtype=dtype,
+                         precision=precision)
 
 
 def resnet34(feat_dim: int = 64, embed_dim: int = 256,
-             dtype: torch.dtype = torch.float32) -> ResNetXVector:
+             dtype: torch.dtype = torch.float32,
+             precision: Optional[str] = None) -> ResNetXVector:
     return ResNetXVector(BasicBlock, (3, 4, 6, 3), feat_dim=feat_dim,
-                         embed_dim=embed_dim, dtype=dtype)
+                         embed_dim=embed_dim, dtype=dtype,
+                         precision=precision)
 
 
 def se_resnet34(feat_dim: int = 64, embed_dim: int = 256,
                 reduction: int = 16,
-                dtype: torch.dtype = torch.float32) -> ResNetXVector:
+                dtype: torch.dtype = torch.float32,
+                precision: Optional[str] = None) -> ResNetXVector:
     """SE-ResNet34: BasicBlock stages with the reference's SELayer gate
     (resnet.py:74-89) before each residual add."""
     return ResNetXVector(BasicBlock, (3, 4, 6, 3), feat_dim=feat_dim,
                          embed_dim=embed_dim, se_reduction=reduction,
-                         dtype=dtype)
+                         dtype=dtype, precision=precision)
 
 
 # ---------------------------------------------------------------------------

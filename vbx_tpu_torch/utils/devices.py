@@ -15,6 +15,9 @@ their own (vbx_tpu_torch.device).
 prints one JSON line {"backend", "usable", "devices", "probe_s", "error"}
 and exits 0 iff a card is usable (1 otherwise), so shell recipes can gate
 as the reference's `gpus=$(free_gpu.sh)` does.
+
+`measured_on` is the measurement scripts' (scripts/torch_*_bench.py)
+check of their `--device`: a card unless the caller asked for the CPU.
 """
 
 from __future__ import annotations
@@ -64,6 +67,34 @@ def pick_backend(timeout_s: float = 120.0) -> str:
     answers the probe, else 'cpu'."""
     info = probe_accelerator(timeout_s)
     return "cuda" if info["usable"] else "cpu"
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def measured_on(device: str, prog: str) -> Optional[str]:
+    """What a measurement script's figures are measured on: 'cpu' when
+    `device` is 'cpu', the card's card_line() when it is 'cuda' and a card
+    is visible. With 'cuda' and no card it returns None, having said on
+    stderr that `--device cpu` runs `prog` on the CPU: the caller exits
+    non-zero, as no figure may come from a device other than the one
+    asked for."""
+    if device == "cpu":
+        return "cpu"
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"{prog}: no CUDA device is available; pass --device cpu to "
+              f"run it on the CPU explicitly", file=sys.stderr, flush=True)
+        return None
+    return card_line()
 
 
 def main(argv: Optional[list] = None) -> int:
