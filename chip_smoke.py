@@ -179,9 +179,33 @@ PyTorch built for CUDA. Phases, each of which exits non-zero on failure:
    engine's) and print its JSON line naming the card; the phase prints
    the drivers' lines and its seconds. The kernels line is unchanged: the
    drivers add no kernel;
-13. one JSON line listing every ported kernel with its numbers, the total
+13. the A/B drivers of scripts/ (torch_ab_corpus_engine.py,
+   torch_ab_plateau.py, torch_ab_ahc_device.py, torch_ab_long_t.py,
+   torch_ab_sp_blockwise.py, torch_ab_s_gt_128.py), each as a subprocess
+   on the card (DRIVER_TIMEOUT), at the sizes of AB_RUNS, cut from the
+   drivers' full sizes to keep the phase near three minutes: the corpus
+   engine A/B and the plateau A/B ('pallas_bf16') on 4 meetings of
+   1000-2000 x-vectors (full size 18 of 8-11k; at this length every
+   meeting's AHC takes the host chain), the corpus rows held to the CPU
+   structured run of the first 2; the device AHC at N = 16384 (full size
+   50000); the long-T smoothers at T = 8192 (full size 65536); the sp
+   forms at T = 8192 on cuda:0 x 4 (full size 32768); S > 128 at
+   T = 2000 (full size 10000); one timed run a row (--reps 1; full size
+   the median of 3). Each must exit 0 with its own gates (every corpus row
+   bounds=OK, thresholds within 5e-5, walk distances within 1e-12 and
+   labels equal, 'host' and 'device' AHC labels identical, the sp forms'
+   labels at the mesh bars, finite gamma) and print its JSON line naming
+   the card and a line matching its AB_RUNS pattern; and every kernel row
+   must have moved its kernel's launch counter (each reset just before the
+   row's run and read just after, in the driver): K1 in the corpus
+   engine's None / 'pallas' / 'pallas_bf16' rows, both plateau rules, the
+   solo and sp kernel forms and the S = 128 / 160 / 256 kernel rows; K2 in
+   the sp kernel forms; the walk in the AHC driver's linkage. The phase
+   prints the drivers' lines, the launches and its seconds; the kernels
+   line is unchanged: the drivers add no kernel;
+14. one JSON line listing every ported kernel with its numbers, the total
    seconds;
-14. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
+15. the last line: {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Without a card, or outside a checkout, it exits non-zero before printing
 any result.
@@ -271,6 +295,23 @@ DRIVER_RUNS = (
 )
 DRIVER_TIMEOUT = 600
 AMI_CHECK_AGREEMENT = 0.99
+# the A/B drivers (phase 13), as DRIVER_RUNS; cuts in the module docstring
+AB_RUNS = (
+    ("ab_corpus_engine", ["torch_ab_corpus_engine.py", "4", "--frames",
+                          "1000", "2000"],
+     r"^pallas_bf16 +wall=.* bounds=OK$"),
+    ("ab_plateau", ["torch_ab_plateau.py", "pallas_bf16", "4", "--frames",
+                    "1000", "2000", "--reps", "1"],
+     r"^batch steps: \d+ -> \d+; identical-label meetings: "),
+    ("ab_ahc_device", ["torch_ab_ahc_device.py", "16384"],
+     r"^ahc_labels N=16384: .* labels identical: True"),
+    ("ab_long_t", ["torch_ab_long_t.py", "8192", "--reps", "1"],
+     r"^assoc: median [\d.]+ ms/EM-run"),
+    ("ab_sp_blockwise", ["torch_ab_sp_blockwise.py", "8192", "--reps", "1"],
+     r"^sp_structured: median .* of solo_pallas_bf16"),
+    ("ab_s_gt_128", ["torch_ab_s_gt_128.py", "2000", "--reps", "1"],
+     r"^S=160 pallas vs structured label agreement: "),
+)
 
 
 def fail(msg: str) -> None:
@@ -2597,16 +2638,17 @@ def bench_phase() -> dict:
             "log": " | ".join(res.stderr.strip().splitlines())}
 
 
-def drivers_phase(card: str) -> dict:
-    """Phase 12: every DRIVER_RUNS entry as `python3 scripts/<script>` in
-    a process of its own, ended if it runs past DRIVER_TIMEOUT (module
-    docstring). Returns {tag: {"seconds", "lines" (stdout but the JSON
-    line), "line" (the JSON line)}, "seconds": the phase's}."""
+def run_drivers(runs, card: str) -> dict:
+    """Each (tag, argv, want) of `runs` as `python3 scripts/<script>` in a
+    process of its own, ended if it runs past DRIVER_TIMEOUT: it must exit
+    0, print a line matching `want` and end with a JSON line naming the
+    card. Returns {tag: {"seconds", "lines" (stdout but the JSON line),
+    "line" (the JSON line)}, "seconds": all of them}."""
     import re
 
     t_phase = time.perf_counter()
     out = {}
-    for tag, argv, want in DRIVER_RUNS:
+    for tag, argv, want in runs:
         cmd = [sys.executable, os.path.join(HERE, "scripts", argv[0]),
                *argv[1:]]
         t0 = time.perf_counter()
@@ -2628,6 +2670,14 @@ def drivers_phase(card: str) -> dict:
             fail(f"driver {tag} measured on {line['device']!r}, not the "
                  f"card {card!r}")
         out[tag] = {"seconds": secs, "lines": lines[:-1], "line": line}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def drivers_phase(card: str) -> dict:
+    """Phase 12: every DRIVER_RUNS entry (run_drivers) and the gates the
+    module docstring lists."""
+    out = run_drivers(DRIVER_RUNS, card)
     check = out["ami_scale"]["line"]["check_vs_cpu"]
     if len(check) != 2 or min(check.values()) < AMI_CHECK_AGREEMENT:
         fail(f"AMI-scale labels vs the CPU structured run: {check}")
@@ -2638,7 +2688,55 @@ def drivers_phase(card: str) -> dict:
     for tag in ("serving", "serving --ab"):
         if out[tag]["line"]["failures"]:
             fail(f"{tag}: {out[tag]['line']['failures']}")
-    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def ab_launches(out: dict) -> dict:
+    """The launches the kernel rows of phase 13's drivers counted, by
+    driver and row (the JSON lines' counts, each reset just before its
+    row's run and read just after); fails if a kernel row launched none:
+    K1 in every kernel row, K2 in the sp kernel forms, the walk in the AHC
+    driver's linkage."""
+    got = {"ab_corpus_engine": {
+               str(r["fb_impl"]): r["launches"]
+               for r in out["ab_corpus_engine"]["line"]["rows"]},
+           "ab_plateau": {
+               rule: {"K1": out["ab_plateau"]["line"][rule]["k1_launches"]}
+               for rule in ("off", "on")},
+           "ab_ahc_device": {"linkage": {
+               "walk": out["ab_ahc_device"]["line"]["linkage"]
+               ["walk_launches"]}},
+           "ab_sp_blockwise": {
+               form: r["launches"] for form, r in
+               out["ab_sp_blockwise"]["line"]["rows"].items()},
+           "ab_s_gt_128": {
+               f"S={r['S']} {r['fb_impl']}": {"K1": r["k1_launches"]}
+               for r in out["ab_s_gt_128"]["line"]["rows"]}}
+    need = (("ab_corpus_engine", "None", "K1"),
+            ("ab_corpus_engine", "pallas", "K1"),
+            ("ab_corpus_engine", "pallas_bf16", "K1"),
+            ("ab_plateau", "off", "K1"), ("ab_plateau", "on", "K1"),
+            ("ab_ahc_device", "linkage", "walk"),
+            ("ab_sp_blockwise", "solo_pallas_bf16", "K1"),
+            ("ab_sp_blockwise", "solo_pallas", "K1"),
+            ("ab_sp_blockwise", "sp_pallas_bf16", "K1"),
+            ("ab_sp_blockwise", "sp_pallas_bf16", "K2"),
+            ("ab_sp_blockwise", "sp_pallas", "K1"),
+            ("ab_sp_blockwise", "sp_pallas", "K2"),
+            ("ab_s_gt_128", "S=128 pallas_bf16", "K1"),
+            ("ab_s_gt_128", "S=160 pallas_bf16", "K1"),
+            ("ab_s_gt_128", "S=256 pallas_bf16", "K1"))
+    for tag, row, k in need:
+        if not got[tag][row][k] > 0:
+            fail(f"{tag} row {row} launched {k} {got[tag][row][k]} times")
+    return got
+
+
+def ab_phase(card: str) -> dict:
+    """Phase 13: every AB_RUNS entry (run_drivers; each driver exits
+    non-zero on its own gates) and ab_launches."""
+    out = run_drivers(AB_RUNS, card)
+    out["launches"] = ab_launches(out)
     return out
 
 
@@ -2965,6 +3063,17 @@ def main() -> int:
     print(f"drivers: AMI-scale labels vs the CPU structured run "
           f"{json.dumps(dp['ami_scale']['line']['check_vs_cpu'])}; phase "
           f"{dp['seconds']:.1f} s")
+
+    ab = ab_phase(card)
+    for tag, argv, _ in AB_RUNS:
+        r = ab[tag]
+        print(f"A/B driver {tag} (python3 scripts/{' '.join(argv)}; "
+              f"{r['seconds']:.1f} s):")
+        for ln in r["lines"]:
+            if ln:
+                print(f"  {ln}")
+    print(f"A/B drivers: kernel launches by row "
+          f"{json.dumps(ab['launches'])}; phase {ab['seconds']:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

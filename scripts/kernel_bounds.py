@@ -73,6 +73,15 @@ def k2_bound(B: int, Tb: int, S: int, R: int, esize: int) -> dict:
     return _bound(nbytes, 5 * B * Tb * S * S)
 
 
+def walk_bound_ms(steps: int, rows: int, n: int, d: int) -> float:
+    """The NN-chain walk (csrc/nn_chain.cu) as chip_smoke.py bounds it: the
+    bytes a walk read (each step the sum rows and sizes of its live
+    clusters, `rows` their count summed over the steps as the kernel
+    counts it, and the lane's n active flags) over the HBM rate. The
+    steps and rows depend on the data: a walk's own counts give them."""
+    return (rows * (d + 1) * 8 + steps * n * 4) / HBM_BYTES_PER_S * 1e3
+
+
 def _bound(nbytes: int, ops: int) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
