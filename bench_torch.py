@@ -224,26 +224,26 @@ def bench_device(fea, phi, qinit, hp, fb_impl, truth, B=B_CARD,
 
 def bench_trace(fea, phi, qinit, hp, fb_impl, B=B_CARD, device="cuda"):
     """Device ms per batch from a torch.profiler trace of TRACE_RUNS runs
-    (utils.profiling: kernel, memcpy and memset time summed on the busiest
-    device). The runs follow bench_device's, so nothing is built here.
-    Returns None, and says so, only when the profiler wrote no trace or it
-    holds no device work."""
+    (utils.profiling.idle_by_span: the union of the kernel, memcpy and
+    memset intervals, so work on two streams at once counts once). The
+    runs follow bench_device's, so nothing is built here. Returns None,
+    and says so, only when the profiler wrote no trace or it holds no
+    device work."""
     import torch
 
-    from vbx_tpu_torch.utils.profiling import (parse_trace_executable_us,
-                                               trace)
+    from vbx_tpu_torch.utils.profiling import idle_by_span, trace
 
     run = _runner(fea, phi, qinit, hp, fb_impl, B, device, torch.float32)
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):
             for _ in range(TRACE_RUNS):
                 run()
-        exe_us = parse_trace_executable_us(tmp)
-    if exe_us is None:
+        read = idle_by_span(tmp)
+    if read is None or read["busy_s"] <= 0:
         log(f"WARNING: the profiler wrote no device trace [{fb_impl}]; the "
             f"line carries only the wall-clock figures")
         return None
-    ms = exe_us / TRACE_RUNS / 1e3
+    ms = read["busy_s"] / TRACE_RUNS * 1e3
     log(f"trace device time [{fb_impl}]: {ms:.3f} ms/batch -> "
         f"{B / (ms / 1e3):,.0f} recordings/s on the device alone")
     return ms

@@ -1,7 +1,7 @@
 """scripts/torch_profile.py's scan part reads a torch.profiler chrome trace
 per annotated call: checked here on a trace written by hand. Also
-vbx_tpu_torch.utils.profiling: trace() off and on, and the device time it
-reads back from a trace."""
+vbx_tpu_torch.utils.profiling: trace() off and on, and the busy and idle
+seconds by span that idle_by_span reads back from a trace."""
 
 import importlib.util
 import json
@@ -79,7 +79,7 @@ def test_profiling_trace_is_a_no_op_without_a_directory(monkeypatch):
 def test_profiling_trace_writes_a_trace_with_no_device_time_on_the_cpu(
         tmp_path, monkeypatch):
     """VBX_TPU_TRACE_DIR turns the capture on; a CPU-only trace has no
-    device work, so its executable time is None, not 0."""
+    device work, so its whole window is idle, outside any `vbx.` span."""
     import torch
 
     from vbx_tpu_torch.utils import profiling
@@ -91,21 +91,53 @@ def test_profiling_trace_writes_a_trace_with_no_device_time_on_the_cpu(
     assert where == str(tmp_path)
     files = list(tmp_path.glob("*.pt.trace.json.gz"))
     assert len(files) == 1
-    assert profiling.parse_trace_executable_us(str(tmp_path)) is None
-    assert profiling.parse_trace_executable_us(str(tmp_path / "no")) is None
+    read = profiling.idle_by_span(str(tmp_path))
+    assert read["busy_s"] == 0.0 and read["window_s"] > 0
+    assert read["idle_s"] == {profiling.OUTSIDE: read["window_s"]}
+    assert profiling.idle_by_span(str(tmp_path / "no")) is None
 
 
-def test_parse_trace_executable_us_sums_device_work_per_device(tmp_path):
-    """Kernel, memcpy and memset events summed per device pid, the busiest
-    device's total; host events and annotations do not count."""
+def _root(ts, dur, tid=1):
+    return dict(_x("user_annotation", "profiling.trace", ts, dur), tid=tid)
+
+
+def _span(name, ts, dur, tid=1):
+    return dict(_x("user_annotation", name, ts, dur), tid=tid)
+
+
+def test_idle_by_span_on_a_trace_written_by_hand(tmp_path, capsys):
+    """Busy time is the union of two streams' overlapping work; idle time
+    goes to the innermost `vbx.` span open on the trace's own thread (a
+    nested span takes its part of the outer one's idle time), the rest to
+    "outside any span"; other threads' spans, host ops and device work
+    outside the window do not count."""
     from vbx_tpu_torch.utils import profiling
 
-    evs = [dict(_x("kernel", "conv", 10.0, 30.0), pid=0),
-           dict(_x("gpu_memcpy", "HtoD", 50.0, 5.5), pid=0),
-           dict(_x("kernel", "gemm", 10.0, 20.0), pid=1),
-           dict(_x("cpu_op", "aten::conv2d", 0.0, 100.0), pid=7),
-           dict(_x("user_annotation", "work", 0.0, 200.0), pid=0)]
-    (tmp_path / "h_1.5.pt.trace.json").write_text(
+    evs = [_root(0.0, 1000.0),
+           _span("vbx.pre", 100.0, 400.0),
+           _span("vbx.ahc.walk", 200.0, 100.0),
+           _span("vbx.vb.chunk", 600.0, 200.0),
+           _span("vbx.worker", 0.0, 1000.0, tid=2),   # a pool thread
+           _span("other", 850.0, 100.0),
+           dict(_x("cpu_op", "aten::copy_", 0.0, 1000.0), tid=1),
+           dict(_x("kernel", "k1", 150.0, 100.0), pid=0, tid=7),
+           dict(_x("kernel", "k2", 200.0, 80.0), pid=0, tid=8),
+           dict(_x("gpu_memcpy", "HtoD", 650.0, 50.0), pid=0, tid=7),
+           dict(_x("kernel", "late", 990.0, 100.0), pid=0, tid=7)]
+    (tmp_path / "h_1.2.pt.trace.json").write_text(
         json.dumps({"traceEvents": evs}))
-    assert profiling.parse_trace_executable_us(str(tmp_path)) == \
-        pytest.approx(35.5)
+    read = profiling.idle_by_span(str(tmp_path))
+    # busy: [150, 250) u [200, 280) = 130, the copy 50, [990, 1000) 10
+    assert read["busy_s"] == pytest.approx(190e-6)
+    assert read["window_s"] == pytest.approx(1000e-6)
+    assert read["idle_s"] == pytest.approx({
+        "vbx.pre": (100 + 200 - 50) * 1e-6,        # 100-200 (less 150-200)
+        "vbx.ahc.walk": 20e-6,                     # 280-300
+        "vbx.vb.chunk": 150e-6,
+        profiling.OUTSIDE: (100 + 100 + 190) * 1e-6})
+    assert sum(read["idle_s"].values()) + read["busy_s"] == \
+        pytest.approx(read["window_s"])
+    assert list(read["idle_s"])[0] == profiling.OUTSIDE   # largest first
+    assert profiling.main([str(tmp_path)]) == 0
+    assert json.loads(capsys.readouterr().out) == read
+    assert profiling.main([str(tmp_path / "none")]) == 1

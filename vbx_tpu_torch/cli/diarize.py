@@ -18,6 +18,7 @@ import sys
 from vbx_tpu_torch.config import DATASET_PRESETS, DiarizationConfig, get_preset
 from vbx_tpu_torch.engine.pipeline import diarize_ark
 from vbx_tpu_torch.parallel.mesh import parse_mesh_arg
+from vbx_tpu_torch.utils.profiling import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -140,13 +141,14 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     mesh = parse_mesh_arg(args.mesh, device=args.device)
     failures = {}
-    outputs = diarize_ark(
-        args.xvec_ark_file, args.segments_file, args.out_rttm_dir, cfg,
-        args.plda_file, args.xvec_transform,
-        batch=not args.no_batch, max_batch_frames=args.max_batch_frames,
-        resume=args.resume, runlog_path=args.runlog,
-        fb_impl=args.fb_impl, failures=failures, device=args.device,
-        mesh=mesh)
+    with trace():   # torch.profiler capture iff VBX_TPU_TRACE_DIR is set
+        outputs = diarize_ark(
+            args.xvec_ark_file, args.segments_file, args.out_rttm_dir, cfg,
+            args.plda_file, args.xvec_transform,
+            batch=not args.no_batch, max_batch_frames=args.max_batch_frames,
+            resume=args.resume, runlog_path=args.runlog,
+            fb_impl=args.fb_impl, failures=failures, device=args.device,
+            mesh=mesh)
     for rec, out in outputs.items():
         print(f"{rec}: {out.n_speakers} speakers, {out.n_iters} VB "
               f"iterations", file=sys.stderr)

@@ -31,6 +31,7 @@ import sys
 
 from vbx_tpu_torch.config import get_preset
 from vbx_tpu_torch.metrics.der import score_corpus
+from vbx_tpu_torch.utils.profiling import trace
 
 PROTOCOLS = {          # AMI_run.sh:63-65
     "forgiving": dict(collar=0.25, ignore_overlaps=True),
@@ -202,9 +203,10 @@ def main(argv=None):
                if getattr(args, opt) is None]
     if missing:
         parser.error(f"stage '{args.stage}' requires {' '.join(missing)}")
-    {"xvectors": stage_xvectors,
-     "diarization": stage_diarization,
-     "score": stage_score}[args.stage](args)
+    with trace():   # torch.profiler capture iff VBX_TPU_TRACE_DIR is set
+        {"xvectors": stage_xvectors,
+         "diarization": stage_diarization,
+         "score": stage_score}[args.stage](args)
     return 0
 
 

@@ -37,13 +37,14 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from vbx_tpu_torch.device import DeviceLike, resolve_device
 from vbx_tpu_torch.ops import cuda_build
+from vbx_tpu_torch.utils.profiling import annotate
 
 MAX_D = 4096          # csrc/nn_chain.cu: kMaxD
 _MAX_GROUP = 32       # csrc/nn_chain.cu: kMaxGroup, lanes walked at once
@@ -159,7 +160,9 @@ def nn_chain_walk(sums: torch.Tensor, ns: Sequence[int],
     reads), on sums' device.
     CUDA tensors launch csrc/nn_chain.cu (one launch for all lanes;
     `blocks_per_sm` picks the grid, 0 the kernel's default, and does not
-    change the result); CPU tensors run nn_chain_walk_plain."""
+    change the result); CPU tensors run nn_chain_walk_plain. Either way
+    the walk's lanes, steps and rows join the counters that
+    `walk_counters` reads."""
     if sums.dim() != 3 or sums.dtype != torch.float64:
         raise ValueError(f"sums must be float64 [M, Np, D], got {sums.dtype} "
                          f"{tuple(sums.shape)}")
@@ -171,20 +174,59 @@ def nn_chain_walk(sums: torch.Tensor, ns: Sequence[int],
         raise ValueError(f"blocks_per_sm must be >= 0 (0: the kernel's "
                          f"default), got {blocks_per_sm}")
     if sums.device.type == "cpu":
-        return nn_chain_walk_plain(sums, ns)
+        out = nn_chain_walk_plain(sums, ns)
+        _count(out, ns, D, launched=False)
+        return out
     if sums.device.type != "cuda":
         raise ValueError(f"nn_chain_walk runs on cuda or cpu, not "
                          f"{sums.device}")
     out, grid, group = walk_on_card(_launcher(), sums, ns, blocks_per_sm)
-    nn_chain_walk.launches += 1
     nn_chain_walk.grid = grid
     nn_chain_walk.group = group
+    _count(out, ns, D, launched=True)
     return out
 
 
 nn_chain_walk.launches = 0   # kernel launches since the caller last reset it
 nn_chain_walk.grid = 0       # blocks of the last launch
 nn_chain_walk.group = 0      # lanes the last launch walked at once
+# cumulative over every walk, the kernel's and the CPU twin's: lanes, their
+# steps and rows read (as the walk counts them), and steps x the lane's n;
+# with D, what a walk read (scripts/kernel_bounds.py:walk_bound_ms)
+nn_chain_walk.lanes = 0
+nn_chain_walk.steps = 0
+nn_chain_walk.rows = 0
+nn_chain_walk.step_n = 0
+nn_chain_walk.D = 0          # the feature dim of the last walk
+_WALK_COUNTERS = ("launches", "lanes", "steps", "rows", "step_n")
+# the counters' owner, by reference: a wrapper installed under the name
+# nn_chain_walk (a test's spy) neither hides nor splits them
+_WALK_FN = nn_chain_walk
+
+
+def _count(out, ns: Sequence[int], D: int, launched: bool) -> None:
+    """Add a finished walk's lanes, steps and rows (from the tensors it
+    returned: one small copy to the host) to nn_chain_walk's counters."""
+    steps, rows = torch.stack([out[4].to(torch.int64), out[5]]).cpu().numpy()
+    with _WALK_LOCK:
+        _WALK_FN.launches += int(launched)
+        _WALK_FN.lanes += len(ns)
+        _WALK_FN.steps += int(steps.sum())
+        _WALK_FN.rows += int(rows.sum())
+        _WALK_FN.step_n += int(steps @ np.asarray(ns, np.int64))
+        _WALK_FN.D = D
+
+
+def walk_counters(since: Optional[dict] = None) -> dict:
+    """A snapshot of nn_chain_walk's cumulative counters; given an earlier
+    snapshot, the counts since it, and `D`, the feature dim of the last
+    walk."""
+    with _WALK_LOCK:
+        now = {k: getattr(_WALK_FN, k) for k in _WALK_COUNTERS}
+        if since is None:
+            return now
+        return {**{k: v - since[k] for k, v in now.items()},
+                "D": _WALK_FN.D}
 
 
 def nn_chain_walk_plain(sums: torch.Tensor, ns: Sequence[int]
@@ -274,24 +316,27 @@ def linkage_dot_avg_device_batched(xns, device: DeviceLike = None) -> list:
     M = len(xns)
     ns = [x.shape[0] for x in xns]
     Np = max(ns)
-    sums0 = np.zeros((M, Np, D), np.float64)
-    for m, x in enumerate(xns):
-        sums0[m, :ns[m]] = x
-    ma, mb, md, bad = nn_chain_walk(torch.from_numpy(sums0).to(dev), ns)[:4]
-    bad = bad.cpu().numpy()
-    if bad.any():
-        raise ReducibilityError(
-            f"device NN-chain reducibility guard tripped on "
-            f"{int(bad.sum())}/{M} recording(s) (f32 near-tie broke "
-            f"the chain invariant); use the host f64 chain")
-    ma, mb, md = ma.cpu().numpy(), mb.cpu().numpy(), md.cpu().numpy()
+    with annotate("vbx.ahc.walk"):
+        sums0 = np.zeros((M, Np, D), np.float64)
+        for m, x in enumerate(xns):
+            sums0[m, :ns[m]] = x
+        ma, mb, md, bad = nn_chain_walk(torch.from_numpy(sums0).to(dev),
+                                        ns)[:4]
+        bad = bad.cpu().numpy()
+        if bad.any():
+            raise ReducibilityError(
+                f"device NN-chain reducibility guard tripped on "
+                f"{int(bad.sum())}/{M} recording(s) (f32 near-tie broke "
+                f"the chain invariant); use the host f64 chain")
+        ma, mb, md = ma.cpu().numpy(), mb.cpu().numpy(), md.cpu().numpy()
     out = []
-    for m, n in enumerate(ns):
-        if n < 2:
-            out.append(np.empty((0, 4), np.float64))
-        else:
-            out.append(_finalize(ma[m, :n - 1], mb[m, :n - 1],
-                                 md[m, :n - 1], n))
+    with annotate("vbx.ahc.finalize"):
+        for m, n in enumerate(ns):
+            if n < 2:
+                out.append(np.empty((0, 4), np.float64))
+            else:
+                out.append(_finalize(ma[m, :n - 1], mb[m, :n - 1],
+                                     md[m, :n - 1], n))
     return out
 
 

@@ -47,6 +47,7 @@ from vbx_tpu_torch.device import DeviceLike, full_fp32_matmuls, resolve_device
 from vbx_tpu_torch.models.features import (add_dither, cmvn_floating,
                                            cmvn_floating_masked,
                                            fbank_config, fbank_htk)
+from vbx_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -260,25 +261,27 @@ class XVectorExtractor:
                          name: str) -> List[ExtractedSegment]:
         """extract_file of a signal `dither` has already dithered."""
         with torch.inference_mode(), full_fp32_matmuls():
-            feats = self.dithered_features(dithered, labs_s)
-            starts, lengths, meta = self.windows(feats, name)
-            if not meta:
-                return []
-            B = self.batch_size
-            n = len(starts)
-            pad = -n % B                   # the last batch is filled up
-            seg_len = self.config.seg_len
-            lengths = lengths + [seg_len] * pad
-            st = torch.tensor(starts + [0] * pad, device=self.device)
-            ln = torch.tensor(lengths, device=self.device)
-            # a batch of full windows needs no mask (its lengths would
-            # zero nothing)
-            embs = torch.cat([
-                self.embed_batch(feats.stream, st[i:i + B],
-                                 None if min(lengths[i:i + B]) == seg_len
-                                 else ln[i:i + B])
-                for i in range(0, n + pad, B)])
-            emb = embs[:n].float().cpu().numpy()
+            with annotate("vbx.extract.features"):
+                feats = self.dithered_features(dithered, labs_s)
+            with annotate("vbx.extract.embed"):
+                starts, lengths, meta = self.windows(feats, name)
+                if not meta:
+                    return []
+                B = self.batch_size
+                n = len(starts)
+                pad = -n % B               # the last batch is filled up
+                seg_len = self.config.seg_len
+                lengths = lengths + [seg_len] * pad
+                st = torch.tensor(starts + [0] * pad, device=self.device)
+                ln = torch.tensor(lengths, device=self.device)
+                # a batch of full windows needs no mask (its lengths would
+                # zero nothing)
+                embs = torch.cat([
+                    self.embed_batch(feats.stream, st[i:i + B],
+                                     None if min(lengths[i:i + B]) == seg_len
+                                     else ln[i:i + B])
+                    for i in range(0, n + pad, B)])
+                emb = embs[:n].float().cpu().numpy()
         out: List[ExtractedSegment] = []
         for (key, s, e), vec in zip(meta, emb):
             if np.isnan(vec).any():
@@ -323,7 +326,8 @@ def extract_to_ark(wav_paths: Sequence[str], lab_paths: Sequence[str],
                              if idx + 1 < len(files) else None)
             try:
                 with Timer(f"Processing file {name}"):
-                    dithered, fs, lab_segs = fut.result()
+                    with annotate("vbx.extract.load_wait"):
+                        dithered, fs, lab_segs = fut.result()
                     if fs != extractor.sample_rate:
                         raise ValueError(
                             f"{wav}: sample rate {fs} != extractor "
@@ -339,6 +343,7 @@ def extract_to_ark(wav_paths: Sequence[str], lab_paths: Sequence[str],
             counts[name] = len(segs)
             vecs.extend((s.key, s.xvector) for s in segs)
             rows.extend((s.key, name, s.start, s.end) for s in segs)
-    write_vec_ark(ark_path, vecs)
-    write_segments(segments_path, rows)
+    with annotate("vbx.extract.write"):
+        write_vec_ark(ark_path, vecs)
+        write_segments(segments_path, rows)
     return counts

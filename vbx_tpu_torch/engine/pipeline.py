@@ -47,6 +47,7 @@ from vbx_tpu_torch.io.transform import read_xvec_transform
 from vbx_tpu_torch.parallel import distributed
 from vbx_tpu_torch.parallel.mesh import Mesh
 from vbx_tpu_torch.utils.bucketing import T_QUANTUM
+from vbx_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass
@@ -349,14 +350,17 @@ def diarize_ark(
 
     dev = resolve_device(device)
     fb_impl = resolve_fb_impl(fb_impl, config, dev)
-    diar = Diarizer.from_files(config, plda_file, transform_file, device=dev)
-    segs_dict = read_xvector_timing_dict(segments_file)
+    # the pass's span record: host seconds by runlog key, written once
+    spans: Dict[str, float] = {}
+    with annotate("vbx.entry.read", spans, "read_s"):
+        diar = Diarizer.from_files(config, plda_file, transform_file,
+                                   device=dev)
+        segs_dict = read_xvector_timing_dict(segments_file)
+        t_start = time.perf_counter()
+        recs: List[Tuple[str, List[str], np.ndarray]] = list(
+            group_by_recording(iter_vec_ark(ark_file)))
     os.makedirs(out_rttm_dir, exist_ok=True)
     runlog = RunLog(runlog_path)
-    t_start = time.perf_counter()
-
-    recs: List[Tuple[str, List[str], np.ndarray]] = list(
-        group_by_recording(iter_vec_ark(ark_file)))
     if shard_over_hosts:
         recs = recs[distributed.local_recording_slice(len(recs))]
     # strictness follows the caller's REQUEST, not what remains after the
@@ -377,6 +381,8 @@ def diarize_ark(
         failures = {}
 
     outputs: Dict[str, DiarizationOutput] = {}
+    # the batched path's stage record (the runlog's `stages` event)
+    stage_log: Optional[Dict[str, object]] = None
     try:
         _, _, run_vb = _parse_init(config.init)
         if mesh is not None and run_vb:
@@ -417,12 +423,17 @@ def diarize_ark(
                 out.recording = rec
                 outputs[rec] = out
         else:
-            stage_log: Dict[str, object] = {}
+            from vbx_tpu_torch.clustering import device as cdev
+
+            stage_log = {}
+            walks0 = cdev.walk_counters()
             outputs = _diarize_batched(diar, recs, max_batch_frames, verbose,
                                        fb_impl=fb_impl, stage_log=stage_log,
                                        runlog=runlog, failures=failures,
                                        mesh=mesh)
-            runlog.write({"event": "stages", **stage_log})
+            # the pass's deltas: a long-lived process walks for its whole
+            # life
+            stage_log["walk"] = cdev.walk_counters(since=walks0)
 
         if not outputs and not n_resumed:
             # nothing succeeded now or in a previous (resumed) run: an
@@ -431,27 +442,31 @@ def diarize_ark(
                 f"all {len(recs)} recording(s) failed: "
                 f"{dict(list(failures.items())[:3])}")
 
-        for rec, seg_names, x_raw in recs:
-            if rec not in outputs:
-                continue                   # failed recording, already warned
-            names, times = segs_dict[rec]
-            if not np.all(names == np.array(seg_names)):
-                raise ValueError(f"segments/ark name mismatch for {rec}")
-            out = outputs[rec]
-            start, end = times.T
-            starts, ends, out_labels = merge_adjacent_labels(
-                start, end, out.labels1st)
-            write_rttm(os.path.join(out_rttm_dir, f"{rec}.rttm"),
-                       rec, starts, ends, out_labels)
-            if config.output_2nd and out.labels2nd is not None:
-                starts2, ends2, labels2 = merge_adjacent_labels(
-                    start, end, out.labels2nd)
-                dir2 = f"{out_rttm_dir}2nd"
-                os.makedirs(dir2, exist_ok=True)
-                write_rttm(os.path.join(dir2, f"{rec}.rttm"),
-                           rec, starts2, ends2, labels2)
-            runlog.recording(rec, n_speakers=out.n_speakers,
-                             n_iters=out.n_iters, elbo=out.elbo)
+        with annotate("vbx.entry.write", spans, "write_s"):
+            for rec, seg_names, x_raw in recs:
+                if rec not in outputs:
+                    continue               # failed recording, already warned
+                names, times = segs_dict[rec]
+                if not np.all(names == np.array(seg_names)):
+                    raise ValueError(f"segments/ark name mismatch for {rec}")
+                out = outputs[rec]
+                start, end = times.T
+                starts, ends, out_labels = merge_adjacent_labels(
+                    start, end, out.labels1st)
+                write_rttm(os.path.join(out_rttm_dir, f"{rec}.rttm"),
+                           rec, starts, ends, out_labels)
+                if config.output_2nd and out.labels2nd is not None:
+                    starts2, ends2, labels2 = merge_adjacent_labels(
+                        start, end, out.labels2nd)
+                    dir2 = f"{out_rttm_dir}2nd"
+                    os.makedirs(dir2, exist_ok=True)
+                    write_rttm(os.path.join(dir2, f"{rec}.rttm"),
+                               rec, starts2, ends2, labels2)
+                runlog.recording(rec, n_speakers=out.n_speakers,
+                                 n_iters=out.n_iters, elbo=out.elbo)
+        if stage_log is not None:
+            runlog.write({"event": "stages", **stage_log,
+                          **{k: round(v, 3) for k, v in spans.items()}})
         runlog.write({"event": "summary", "n_recordings": len(recs),
                       "n_failed": len(failures),
                       "failed": sorted(failures) or None,
@@ -509,7 +524,8 @@ def _pre_stage(diar: Diarizer, recs) -> Dict[int, tuple]:
     if len(elig) < 2:
         return {}
     xs: Dict[int, np.ndarray] = {}
-    with ThreadPoolExecutor(max_workers=min(8, len(elig))) as pool:
+    with annotate("vbx.pre.transform"), ThreadPoolExecutor(
+            max_workers=min(8, len(elig))) as pool:
         for i, fut in [(i, pool.submit(diar.transform_xvectors, recs[i][2]))
                        for i in elig]:
             try:
@@ -530,8 +546,9 @@ def _pre_stage(diar: Diarizer, recs) -> Dict[int, tuple]:
         for grp in groups:
             xns = [np.ascontiguousarray(ahc._normalized(xs[i])) for i in grp]
             Zs = cdev.linkage_dot_avg_device_batched(xns, device=diar.device)
-            thrs = two_gmm_calib_cosine_device_batched(xns,
-                                                       device=diar.device)
+            with annotate("vbx.pre.calibrate"):
+                thrs = two_gmm_calib_cosine_device_batched(
+                    xns, device=diar.device)
             pre.update({i: (xs[i], Z, float(t))
                         for i, Z, t in zip(grp, Zs, thrs)})
     except cdev.ReducibilityError as exc:
@@ -585,10 +602,11 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     dev = diar.device
     n = len(recs)
 
-    t_pre = time.perf_counter()
-    pre_xz = _pre_stage(diar, recs)
+    spans: Dict[str, float] = {}      # host seconds by runlog key
+    with annotate("vbx.pre", spans, "pre_linkage_s"):
+        pre_xz = _pre_stage(diar, recs)
     if stage_log is not None and pre_xz:
-        stage_log["pre_linkage_s"] = round(time.perf_counter() - t_pre, 3)
+        stage_log["pre_linkage_s"] = round(spans["pre_linkage_s"], 3)
         stage_log["pre_linkage_recordings"] = sum(
             1 for v in pre_xz.values() if v[1] is not None)
 
@@ -620,128 +638,132 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     done: List[dict] = []
 
     def launch(idxs: List[int], T_pad: int, S_pad: int) -> None:
-        # under a mesh the sharded engine needs B divisible by the 'dp'
-        # extent: pad with REPLICAS of lane 0 (results discarded; an
-        # all-masked lane would put zero counts through the M-step
-        # divisions, and a replica converges in lockstep with lane 0, so
-        # padding adds no EM iterations)
-        stack_idxs = idxs
-        if mesh is not None:
-            n_dp = mesh.shape["dp"]
-            stack_idxs = idxs + [idxs[0]] * (-len(idxs) % n_dp)
-        B = len(stack_idxs)
-        X = torch.stack([prepped[i][3] for i in stack_idxs])
-        G = torch.stack([prepped[i][4] for i in stack_idxs])
-        PI = np.zeros((B, S_pad), dtype=diar._np_dtype)
-        FM = np.zeros((B, T_pad), dtype=bool)
-        SM = np.zeros((B, S_pad), dtype=bool)
-        for bi, i in enumerate(stack_idxs):
-            _, T, S, _, _ = prepped[i]
-            PI[bi, :S] = 1.0 / S
-            FM[bi, :T] = True
-            SM[bi, :S] = True
-        for i in idxs:
-            prepped[i][3] = prepped[i][4] = None
-        kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
-                  max_iters=cfg.vb.max_iters)
-        if mesh is not None:
-            mesh_fb = fb_impl if fb_impl in ("pallas", "pallas_bf16") else None
-            eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, mesh_fb)
-            res = vbx_sharded(
-                mesh, X, diar._put(phi[:cfg.lda_dim]), G, diar._put(PI),
-                FM, SM, epsilon=eps_eff, fb_impl=mesh_fb,
-                plateau_ulps=pu_eff, plateau_iters=pi_eff, **kw)
-        else:
-            eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, fb_impl)
-            res = vbx_batched(
-                X, diar._put(phi[:cfg.lda_dim]), G, diar._put(PI),
-                torch.as_tensor(FM, device=dev), torch.as_tensor(SM,
-                                                                 device=dev),
-                epsilon=eps_eff, fb_impl=fb_impl, plateau_ulps=pu_eff,
-                plateau_iters=pi_eff, device=dev, **kw)
-        l1, l2 = _top2(res.gamma, torch.as_tensor(SM,
-                                                  device=res.gamma.device))
-        done.append({"idxs": idxs, "T_pad": T_pad, "S_pad": S_pad,
-                     "l1": l1.cpu().numpy(), "l2": l2.cpu().numpy(),
-                     "iters": res.n_iters.cpu().numpy(),
-                     "elbos": res.elbo.cpu().numpy()})
+        with annotate("vbx.vb.chunk"):
+            # under a mesh the sharded engine needs B divisible by the 'dp'
+            # extent: pad with REPLICAS of lane 0 (results discarded; an
+            # all-masked lane would put zero counts through the M-step
+            # divisions, and a replica converges in lockstep with lane 0,
+            # so padding adds no EM iterations)
+            stack_idxs = idxs
+            if mesh is not None:
+                n_dp = mesh.shape["dp"]
+                stack_idxs = idxs + [idxs[0]] * (-len(idxs) % n_dp)
+            B = len(stack_idxs)
+            X = torch.stack([prepped[i][3] for i in stack_idxs])
+            G = torch.stack([prepped[i][4] for i in stack_idxs])
+            PI = np.zeros((B, S_pad), dtype=diar._np_dtype)
+            FM = np.zeros((B, T_pad), dtype=bool)
+            SM = np.zeros((B, S_pad), dtype=bool)
+            for bi, i in enumerate(stack_idxs):
+                _, T, S, _, _ = prepped[i]
+                PI[bi, :S] = 1.0 / S
+                FM[bi, :T] = True
+                SM[bi, :S] = True
+            for i in idxs:
+                prepped[i][3] = prepped[i][4] = None
+            kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa,
+                      Fb=cfg.vb.Fb, max_iters=cfg.vb.max_iters)
+            if mesh is not None:
+                mesh_fb = (fb_impl if fb_impl in ("pallas", "pallas_bf16")
+                           else None)
+                eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, mesh_fb)
+                res = vbx_sharded(
+                    mesh, X, diar._put(phi[:cfg.lda_dim]), G,
+                    diar._put(PI), FM, SM, epsilon=eps_eff,
+                    fb_impl=mesh_fb, plateau_ulps=pu_eff,
+                    plateau_iters=pi_eff, **kw)
+            else:
+                eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, fb_impl)
+                res = vbx_batched(
+                    X, diar._put(phi[:cfg.lda_dim]), G, diar._put(PI),
+                    torch.as_tensor(FM, device=dev),
+                    torch.as_tensor(SM, device=dev),
+                    epsilon=eps_eff, fb_impl=fb_impl, plateau_ulps=pu_eff,
+                    plateau_iters=pi_eff, device=dev, **kw)
+            l1, l2 = _top2(res.gamma,
+                           torch.as_tensor(SM, device=res.gamma.device))
+            done.append({"idxs": idxs, "T_pad": T_pad, "S_pad": S_pad,
+                         "l1": l1.cpu().numpy(), "l2": l2.cpu().numpy(),
+                         "iters": res.n_iters.cpu().numpy(),
+                         "elbos": res.elbo.cpu().numpy()})
 
     # parallelism across recordings, not within: pool workers x per-call
     # OpenMP teams oversubscribe the host, so the native linkage runs
     # single-threaded inside the pool (restored after)
     n_workers = min(init_workers, n, os.cpu_count() or init_workers)
-    t0 = time.perf_counter()
     n_overlapped = 0
-    if n_workers > 1:
-        set_native_threads(1)
-    try:
-        import contextlib
-        try:
-            from threadpoolctl import threadpool_limits
-            blas_ctx = threadpool_limits(limits=1, user_api="blas")
-        except ImportError:
-            blas_ctx = contextlib.nullcontext()
-        with blas_ctx, ThreadPoolExecutor(max_workers=n_workers) as pool:
-            futures = {pool.submit(prep, i): i for i in range(n)}
-            for fut in as_completed(futures):
-                try:
-                    i, rec, T, S, key, Xi, Gi, p = fut.result()
-                except Exception as exc:   # noqa: BLE001 — isolate per rec
-                    _warn_failed(recs[futures[fut]][0], exc, runlog,
-                                 failures)
-                    continue
-                # upload from the main thread so the copy overlaps the
-                # pool's remaining init work
-                prepped[i] = [rec, T, S, torch.as_tensor(Xi, device=dev),
-                              torch.as_tensor(Gi, device=dev)]
-                if phi is None:
-                    phi = p
-                pending.setdefault(key, []).append(i)
-                per_batch = chunk_cap(key[0], max_batch_frames)
-                if mesh is not None:
-                    # max_batch_frames is a PER-DEVICE budget and the mesh
-                    # splits each chunk's frames over all its devices;
-                    # floor to a dp multiple (at least one dp group), since
-                    # launch() pads B up to one
-                    n_dp = mesh.shape["dp"]
-                    per_batch = max(n_dp,
-                                    per_batch * mesh.size // n_dp * n_dp)
-                want = min(next_chunk.get(key, 1), per_batch)
-                if len(pending[key]) >= want:
-                    # launch now, under the remaining init; double the next
-                    # chunk so batch shapes stay few
-                    launch(pending.pop(key), *key)
-                    next_chunk[key] = min(max(2 * want, 2), per_batch)
-                    n_overlapped += 1
-    finally:
+    with annotate("vbx.init", spans, "init_s"):
         if n_workers > 1:
-            set_native_threads(os.cpu_count() or 1)
+            set_native_threads(1)
+        try:
+            import contextlib
+            try:
+                from threadpoolctl import threadpool_limits
+                blas_ctx = threadpool_limits(limits=1, user_api="blas")
+            except ImportError:
+                blas_ctx = contextlib.nullcontext()
+            with blas_ctx, ThreadPoolExecutor(
+                    max_workers=n_workers) as pool:
+                futures = {pool.submit(prep, i): i for i in range(n)}
+                for fut in as_completed(futures):
+                    try:
+                        i, rec, T, S, key, Xi, Gi, p = fut.result()
+                    except Exception as exc:   # noqa: BLE001 — per rec
+                        _warn_failed(recs[futures[fut]][0], exc, runlog,
+                                     failures)
+                        continue
+                    # upload from the main thread so the copy overlaps the
+                    # pool's remaining init work
+                    prepped[i] = [rec, T, S,
+                                  torch.as_tensor(Xi, device=dev),
+                                  torch.as_tensor(Gi, device=dev)]
+                    if phi is None:
+                        phi = p
+                    pending.setdefault(key, []).append(i)
+                    per_batch = chunk_cap(key[0], max_batch_frames)
+                    if mesh is not None:
+                        # max_batch_frames is a PER-DEVICE budget and the
+                        # mesh splits each chunk's frames over all its
+                        # devices; floor to a dp multiple (at least one dp
+                        # group), since launch() pads B up to one
+                        n_dp = mesh.shape["dp"]
+                        per_batch = max(n_dp,
+                                        per_batch * mesh.size // n_dp * n_dp)
+                    want = min(next_chunk.get(key, 1), per_batch)
+                    if len(pending[key]) >= want:
+                        # launch now, under the remaining init; double the
+                        # next chunk so batch shapes stay few
+                        launch(pending.pop(key), *key)
+                        next_chunk[key] = min(max(2 * want, 2), per_batch)
+                        n_overlapped += 1
+        finally:
+            if n_workers > 1:
+                set_native_threads(os.cpu_count() or 1)
     if stage_log is not None:
-        stage_log["init_s"] = round(time.perf_counter() - t0, 3)
+        stage_log["init_s"] = round(spans["init_s"], 3)
         stage_log["vb_chunks_overlapped"] = n_overlapped
         stage_log["buckets"] = []
 
-    t_vb = time.perf_counter()
-    for (T_pad, S_pad), idxs in sorted(pending.items()):
-        launch(idxs, T_pad, S_pad)
-
     outputs: Dict[str, DiarizationOutput] = {}
-    for entry in done:
-        idxs = entry["idxs"]
-        if stage_log is not None:
-            stage_log["buckets"].append(
-                {"B": len(idxs), "T_pad": entry["T_pad"],
-                 "S_pad": entry["S_pad"],
-                 "max_iters_run": int(entry["iters"].max())})
-        for bi, i in enumerate(idxs):
-            rec, T, S, _, _ = prepped[i]
-            l1 = entry["l1"][bi, :T]
-            outputs[rec] = DiarizationOutput(
-                recording=rec, labels1st=l1,
-                labels2nd=(entry["l2"][bi, :T] if S > 1 else None),
-                n_speakers=len(np.unique(l1)),
-                n_iters=int(entry["iters"][bi]), elbo=entry["elbos"][bi],
-                gamma=None)
+    with annotate("vbx.vb.tail", spans, "vb_s"):
+        for (T_pad, S_pad), idxs in sorted(pending.items()):
+            launch(idxs, T_pad, S_pad)
+        for entry in done:
+            idxs = entry["idxs"]
+            if stage_log is not None:
+                stage_log["buckets"].append(
+                    {"B": len(idxs), "T_pad": entry["T_pad"],
+                     "S_pad": entry["S_pad"],
+                     "max_iters_run": int(entry["iters"].max())})
+            for bi, i in enumerate(idxs):
+                rec, T, S, _, _ = prepped[i]
+                l1 = entry["l1"][bi, :T]
+                outputs[rec] = DiarizationOutput(
+                    recording=rec, labels1st=l1,
+                    labels2nd=(entry["l2"][bi, :T] if S > 1 else None),
+                    n_speakers=len(np.unique(l1)),
+                    n_iters=int(entry["iters"][bi]),
+                    elbo=entry["elbos"][bi], gamma=None)
     if stage_log is not None:
-        stage_log["vb_s"] = round(time.perf_counter() - t_vb, 3)
+        stage_log["vb_s"] = round(spans["vb_s"], 3)
     return outputs
