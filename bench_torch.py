@@ -87,14 +87,14 @@ def prepare_inputs(cfg, device):
     speakers' frames [T]) for the guard. Raises unless the shape is
     T=1025, D=128, S=31: the shape is the workload's definition."""
     from vbx_tpu_torch.engine.pipeline import Diarizer
-    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped
     from vbx_tpu_torch.testing import write_bench_recording
 
     with tempfile.TemporaryDirectory() as d:
         rec = write_bench_recording(d)
         diar = Diarizer.from_files(cfg, rec["plda"], rec["transform"],
                                    device=device)
-        _, _, x_raw = next(group_by_recording(iter_vec_ark(rec["ark"])))
+        _, _, x_raw = next(read_vec_ark_grouped(rec["ark"]))
     x = diar.transform_xvectors(x_raw)
     labels = diar.initial_labels(x)
     fea, phi, qinit = diar.vb_inputs(x, labels)

@@ -1191,14 +1191,13 @@ def corpus_diagnostics(work: str, corpus, sys_rttm_dir: str) -> dict:
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.engine.debug import frame_der, vbx_debug
     from vbx_tpu_torch.engine.pipeline import Diarizer
-    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped
     from vbx_tpu_torch.testing import write_truth_rttms
 
     cfg = get_preset("example")
     diar = Diarizer.from_files(cfg, corpus["plda"], corpus["transform"],
                                device="cuda")
-    rec, _, x_raw = next(iter(group_by_recording(
-        iter_vec_ark(corpus["ark"]))))
+    rec, _, x_raw = next(read_vec_ark_grouped(corpus["ark"]))
     truth = corpus["truth"][rec]
     x = diar.transform_xvectors(x_raw)
     fea, phi, q0 = diar.vb_inputs(x, diar.initial_labels(x))
@@ -1584,13 +1583,13 @@ def mesh_vb_args(corpus, cfg):
     import torch
 
     from vbx_tpu_torch.engine.pipeline import Diarizer
-    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped
     from vbx_tpu_torch.utils.bucketing import bucket_shape
 
     diar = Diarizer.from_files(cfg, corpus["plda"], corpus["transform"],
                                device="cuda")
     prepped = []
-    for _, _, x_raw in group_by_recording(iter_vec_ark(corpus["ark"])):
+    for _, _, x_raw in read_vec_ark_grouped(corpus["ark"]):
         x = diar.transform_xvectors(x_raw)
         prepped.append(diar.vb_inputs(x, diar.initial_labels(x)))
     T_pad, S_pad = bucket_shape(max(len(q) for _, _, q in prepped),
@@ -2128,8 +2127,7 @@ def serving_path(work: str) -> dict:
     from vbx_tpu_torch.clustering import device as cdev
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.engine import ahc
-    from vbx_tpu_torch.io.ark import (group_by_recording, iter_vec_ark,
-                                      write_vec_ark)
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped, write_vec_ark
     from vbx_tpu_torch.io.segments import (read_xvector_timing_dict,
                                            write_segments)
     from vbx_tpu_torch.ops import fb_kernel
@@ -2144,7 +2142,7 @@ def serving_path(work: str) -> dict:
                   "pallas")
     segs = read_xvector_timing_dict(corpus["segments"])
     recs = [(rec, x, segs[rec][1]) for rec, _, x in
-            group_by_recording(iter_vec_ark(corpus["ark"]))]
+            read_vec_ark_grouped(corpus["ark"])]
     with _w.catch_warnings(record=True) as caught:
         _w.simplefilter("always")
         svc = DiarizationService.from_files(cfg, corpus["plda"],

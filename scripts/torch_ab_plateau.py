@@ -53,12 +53,12 @@ def vb_metas(d, cfg, device) -> list:
     """(recording, fea, phi, qinit) of every meeting of `d`/c.ark, through
     a Diarizer on `d`'s models and `device`."""
     from vbx_tpu_torch.engine.pipeline import Diarizer
-    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped
 
     diar = Diarizer.from_files(cfg, f"{d}/plda", f"{d}/transform.h5",
                                device=device)
     metas = []
-    for rec, _, x_raw in group_by_recording(iter_vec_ark(f"{d}/c.ark")):
+    for rec, _, x_raw in read_vec_ark_grouped(f"{d}/c.ark"):
         x = diar.transform_xvectors(x_raw)
         labels = diar.initial_labels(x)
         fea, phi, qinit = diar.vb_inputs(x, labels)

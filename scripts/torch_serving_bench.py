@@ -115,7 +115,7 @@ def main(argv=None) -> int:
         return 2
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.engine.pipeline import diarize_ark
-    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped
     from vbx_tpu_torch.io.segments import read_xvector_timing_dict
     from vbx_tpu_torch.serving import DiarizationService
     from vbx_tpu_torch.testing import write_bench_recording
@@ -123,7 +123,7 @@ def main(argv=None) -> int:
     N, K = args.N, args.K
     work = tempfile.TemporaryDirectory()
     rec = write_bench_recording(os.path.join(work.name, "bench"))
-    _, _, x_raw = next(group_by_recording(iter_vec_ark(rec["ark"])))
+    _, _, x_raw = next(read_vec_ark_grouped(rec["ark"]))
     _, times = read_xvector_timing_dict(rec["segments"])["bench"]
 
     cfg = get_preset("example")

@@ -748,7 +748,7 @@ def test_service_on_a_card_matches_the_offline_pipeline(tmp_path):
     _need_card()
     from vbx_tpu_torch.config import get_preset
     from vbx_tpu_torch.engine.pipeline import diarize_ark
-    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped
     from vbx_tpu_torch.io.segments import read_xvector_timing_dict
     from vbx_tpu_torch.serving import DiarizationService
     from vbx_tpu_torch.testing import write_corpus
@@ -766,13 +766,13 @@ def test_service_on_a_card_matches_the_offline_pipeline(tmp_path):
                                        batch_window_ms=200.0) as svc:
         assert svc._fb_impl is None
         futs = {rec: svc.submit(rec, x, segs[rec][1])
-                for rec, _, x in group_by_recording(iter_vec_ark(c["ark"]))}
+                for rec, _, x in read_vec_ark_grouped(c["ark"])}
         res = {rec: f.result(timeout=300) for rec, f in futs.items()}
     with DiarizationService.from_files(cfg, c["plda"], c["transform"],
                                        device="cuda", fb_impl="pallas",
                                        batch_window_ms=200.0) as svc:
         futs = {rec: svc.submit(rec, x, segs[rec][1])
-                for rec, _, x in group_by_recording(iter_vec_ark(c["ark"]))}
+                for rec, _, x in read_vec_ark_grouped(c["ark"])}
         res_k = {rec: f.result(timeout=300) for rec, f in futs.items()}
     assert fb_kernel.fb_fused_sb.launches > before
     for rec in off:

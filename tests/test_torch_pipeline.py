@@ -195,7 +195,7 @@ def test_codecs_write_identical_bytes(tmp_path, corpus):
         mod.write_rttm(buf, "r", *m_t)
         outs.append(buf.getvalue())
     assert outs[0] == outs[1]
-    groups_t = list(tark.group_by_recording(tark.iter_vec_ark(corpus["ark"])))
+    groups_t = list(tark.read_vec_ark_grouped(corpus["ark"]))
     groups_j = list(jark.group_by_recording(jark.iter_vec_ark(corpus["ark"])))
     assert [g[0] for g in groups_t] == [g[0] for g in groups_j]
     for a, b in zip(groups_t, groups_j):

@@ -29,7 +29,7 @@ import torch
 from vbx_tpu_torch.cli.serve import make_handler
 from vbx_tpu_torch.config import get_preset
 from vbx_tpu_torch.engine import pipeline as tpipe
-from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+from vbx_tpu_torch.io.ark import read_vec_ark_grouped
 from vbx_tpu_torch.io.segments import read_xvector_timing_dict
 from vbx_tpu_torch.serving import (DiarizationService, ServeResult,
                                    ServiceOverloaded, _Request)
@@ -53,7 +53,7 @@ def corpus(tmp_path_factory):
                      SPEAKERS)
     segs = read_xvector_timing_dict(c["segments"])
     c["recs"] = {rec: (x, segs[rec][1]) for rec, _, x in
-                 group_by_recording(iter_vec_ark(c["ark"]))}
+                 read_vec_ark_grouped(c["ark"])}
     return c
 
 

@@ -1,11 +1,12 @@
 """The port's spans and counters on the CPU: `utils.profiling.annotate`'s
 stage log, the `vbx.` spans that diarize_ark and extract_to_ark leave in a
 torch.profiler trace, the runlog `stages` event's span seconds and walk
-deltas, and nn_chain_walk's cumulative counters."""
+and ark read deltas, and nn_chain_walk's cumulative counters."""
 
 import dataclasses
 import gzip
 import json
+import os
 import time
 
 import numpy as np
@@ -91,6 +92,26 @@ def test_batched_pass_leaves_its_spans_and_stage_seconds(corpus, tmp_path):
     assert st["walk"]["launches"] == 0 and st["walk"]["lanes"] == 0
     assert [json.loads(line)["event"] for line in open(runlog)][-2:] == \
         ["stages", "summary"]             # written after the RTTM loop
+
+
+def test_batched_pass_writes_the_read_counters(tmp_path):
+    """A batched pass over the main path's corpus (fixed-width keys) writes
+    the ark readers' deltas as stages.read: every record of the ark, a
+    run a recording, all but each run's first located in bulk."""
+    from vbx_tpu.io.ark import iter_vec_ark
+    from vbx_tpu_torch.testing import MAIN_PATH_RECORDINGS, main_path_corpus
+
+    c = main_path_corpus(str(tmp_path / "c"))
+    runlog = str(tmp_path / "run.jsonl")
+    pipeline.diarize_ark(c["ark"], c["segments"], str(tmp_path / "rttm"),
+                         _preset(), c["plda"], c["transform"], batch=True,
+                         verbose=False, device="cpu", runlog_path=runlog)
+    (st,) = _stages(runlog)
+    n = sum(1 for _ in iter_vec_ark(c["ark"]))
+    assert st["read"] == {"records": n, "bytes": os.path.getsize(c["ark"]),
+                          "bulk": n - MAIN_PATH_RECORDINGS,
+                          "walked": MAIN_PATH_RECORDINGS,
+                          "runs": MAIN_PATH_RECORDINGS}
 
 
 def test_nn_chain_walk_counts_lanes_steps_and_rows():

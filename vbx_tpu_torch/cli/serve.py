@@ -238,13 +238,12 @@ def _serve_wav(service: DiarizationService, body: dict) -> dict:
 def _serve_ark(service: DiarizationService, body: dict) -> dict:
     """Server-local ark + segments: submit every recording concurrently so
     they micro-batch onto the device together."""
-    from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+    from vbx_tpu_torch.io.ark import read_vec_ark_grouped
     from vbx_tpu_torch.io.segments import read_xvector_timing_dict
 
     segs = read_xvector_timing_dict(str(body["segments_file"]))
     futures = {}
-    for rec, seg_names, x_raw in group_by_recording(
-            iter_vec_ark(str(body["xvec_ark_file"]))):
+    for rec, seg_names, x_raw in read_vec_ark_grouped(str(body["xvec_ark_file"])):
         names, times = segs[rec]
         if not np.all(names == np.array(seg_names)):
             raise ValueError(f"segments/ark name mismatch for {rec}")

@@ -39,7 +39,7 @@ from vbx_tpu_torch.device import DeviceLike, resolve_device, torch_dtype
 from vbx_tpu_torch.engine.ahc import (
     ahc_labels, random_labels, smooth_labels_to_gamma)
 from vbx_tpu_torch.engine.vbhmm import vbx, vbx_batched
-from vbx_tpu_torch.io.ark import group_by_recording, iter_vec_ark
+from vbx_tpu_torch.io.ark import read_counters, read_vec_ark_grouped
 from vbx_tpu_torch.io.plda import read_plda, rediagonalize_plda
 from vbx_tpu_torch.io.rttm import merge_adjacent_labels, write_rttm
 from vbx_tpu_torch.io.segments import read_xvector_timing_dict
@@ -352,13 +352,15 @@ def diarize_ark(
     fb_impl = resolve_fb_impl(fb_impl, config, dev)
     # the pass's span record: host seconds by runlog key, written once
     spans: Dict[str, float] = {}
+    reads0 = read_counters()
     with annotate("vbx.entry.read", spans, "read_s"):
         diar = Diarizer.from_files(config, plda_file, transform_file,
                                    device=dev)
         segs_dict = read_xvector_timing_dict(segments_file)
         t_start = time.perf_counter()
         recs: List[Tuple[str, List[str], np.ndarray]] = list(
-            group_by_recording(iter_vec_ark(ark_file)))
+            read_vec_ark_grouped(ark_file))
+    reads = read_counters(since=reads0)
     os.makedirs(out_rttm_dir, exist_ok=True)
     runlog = RunLog(runlog_path)
     if shard_over_hosts:
@@ -425,7 +427,7 @@ def diarize_ark(
         else:
             from vbx_tpu_torch.clustering import device as cdev
 
-            stage_log = {}
+            stage_log = {"read": reads}
             walks0 = cdev.walk_counters()
             outputs = _diarize_batched(diar, recs, max_batch_frames, verbose,
                                        fb_impl=fb_impl, stage_log=stage_log,

@@ -4,8 +4,8 @@ vbx_tpu.io modules the diarization and extraction paths read and write.
 Pure Python/NumPy; outputs are byte-identical to vbx_tpu's."""
 
 from vbx_tpu_torch.io.ark import (  # noqa: F401
-    group_by_recording, iter_vec_ark, read_txt_vectors, read_vec_ark,
-    write_txt_vectors, write_vec_ark,
+    group_by_recording, iter_vec_ark, read_counters, read_txt_vectors,
+    read_vec_ark, read_vec_ark_grouped, write_txt_vectors, write_vec_ark,
 )
 from vbx_tpu_torch.io.kaldi_matrix import (  # noqa: F401
     iter_mat_ark, read_mat_ark, read_mat_binary, read_sparse_mat,

@@ -6,6 +6,7 @@ predict.py:192)."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -29,18 +30,23 @@ def read_xvector_timing_dict(path: str) -> Dict[str, Tuple[np.ndarray, np.ndarra
     """segs_dict[recording] = (array_of_xvector_names, array of [start, end]).
 
     Consecutive lines of one recording must be contiguous (same grouping
-    contract as the reference, diarization_lib.py:108-110)."""
+    contract as the reference, diarization_lib.py:108-110); lines of a
+    recording that comes back later join its entry."""
     rows = read_segments(path)
-    out: Dict[str, Tuple[List[str], List[List[float]]]] = {}
-    order: List[str] = []
-    for name, rec, start, end in rows:
-        if rec not in out:
-            out[rec] = ([], [])
-            order.append(rec)
-        out[rec][0].append(name)
-        out[rec][1].append([start, end])
-    return {rec: (np.array(names, dtype=object), np.array(times, dtype=float))
-            for rec, (names, times) in out.items()}
+    if not rows:
+        return {}
+    names, recs, starts, ends = zip(*rows)
+    times = np.column_stack((starts, ends)).astype(float)
+    spans: Dict[str, List[Tuple[int, int]]] = {}
+    i = 0
+    for rec, group in itertools.groupby(recs):
+        j = i + sum(1 for _ in group)
+        spans.setdefault(rec, []).append((i, j))
+        i = j
+    return {rec: (np.array([n for i, j in sp for n in names[i:j]],
+                           dtype=object),
+                  np.concatenate([times[i:j] for i, j in sp]))
+            for rec, sp in spans.items()}
 
 
 def write_segments(path_or_fd, rows) -> None:
