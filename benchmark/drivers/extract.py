@@ -7,10 +7,17 @@ End to end: `extract_xrt`, the wav seconds of the files turned into ark +
 segments over the wall seconds of the calls. Judged afterwards: every
 call's segments file against the windows the plain reference cuts from
 the same VAD (keys, start and end seconds, exact), and a sample of the
-x-vectors drawn from the seed against the plain float32 ResNet101 of
-benchmark/reference/xvector.py on the same samples and weights.
+x-vectors drawn from the seed against the configuration's plain model on
+the same samples and weights.
+
+The model is the configuration's: its `extraction_model` names the spec
+module benchmark/extraction_models/<name>.py (`resnet101` where it names
+none), which builds the program's extractor and the plain reference
+(that module's docstring gives the contract). A later extraction model is
+a spec module, a configuration and their entries; no file here changes.
 """
 
+import importlib
 import os
 import shutil
 import sys
@@ -41,6 +48,14 @@ def _files(cell, seed: int):
     return out
 
 
+def model_spec(cell):
+    """The module of benchmark/extraction_models/ the configuration
+    names."""
+    return importlib.import_module("benchmark.extraction_models."
+                                   + cell.config.get("extraction_model",
+                                                     "resnet101"))
+
+
 def ref_settings(cfg, fs: int) -> dict:
     e = cfg.extractor
     return {"fbank": ref.fbank_config(fs), "sample_rate": fs,
@@ -53,15 +68,13 @@ def ref_settings(cfg, fs: int) -> dict:
 def run(cell, clock, device: str = "cuda"):
     import torch
 
-    from vbx_tpu_torch.config import ExtractorConfig, config_from_dict
-    from vbx_tpu_torch.engine.extractor import XVectorExtractor, \
-        extract_to_ark
-    from vbx_tpu_torch.models.resnet import resnet101
+    from vbx_tpu_torch.config import config_from_dict
+    from vbx_tpu_torch.engine.extractor import extract_to_ark
 
     on_card = device == "cuda"
     cfg = config_from_dict(cell.config["diarization"])
     fs = cfg.sample_rate
-    w = cell.config["widths"]
+    spec = model_spec(cell)
     work = tempfile.mkdtemp(prefix="bench_extract_")
     try:
         files = _files(cell, cell.seed)
@@ -77,15 +90,7 @@ def run(cell, clock, device: str = "cuda"):
         kaldi_io.write_wav(f"{work}/warm.wav", wpcm[:60 * fs], fs)
         kaldi_io.write_lab(f"{work}/warm.lab", cut)
 
-        ref_model = ref.ResNet101(w["feat_dim"], w["embed_dim"],
-                                  w["resnet_m_channels"],
-                                  w["resnet_blocks"])
-        state = datagen.resnet_state(cell.seed, ref_model, device)
-        model = resnet101(w["feat_dim"], w["embed_dim"])
-        model.load_state_dict(state)
-        ext = XVectorExtractor(model, fs, ExtractorConfig(
-            **cell.config["diarization"]["extractor"]),
-            batch_size=cell.traffic["batch_size"], device=device)
+        ext, state = spec.build(cell, device)
         extract_to_ark([f"{work}/warm.wav"], [f"{work}/warm.lab"], ["warm"],
                        f"{work}/warm.ark", f"{work}/warm.seg", ext)
         if on_card:
@@ -119,7 +124,7 @@ def run(cell, clock, device: str = "cuda"):
                         break
                 window_s = time.perf_counter() - t0
         device_rec = harness.device_info(on_card)
-        del ext, model
+        del ext
         if on_card:
             torch.cuda.empty_cache()
 
@@ -134,7 +139,7 @@ def run(cell, clock, device: str = "cuda"):
                                int(k.rsplit("-", 2)[1])
                                for rows in segs.values()
                                for k, _, _, _ in rows],
-                   "widths": w}
+                   "widths": cell.config["widths"]}
             result["metrics"] = harness.read_layer_metrics(cell, ctx)
             harness.add_trace(result, tr, window_s)
         else:
@@ -159,7 +164,7 @@ def run(cell, clock, device: str = "cuda"):
         chosen = harness.sample(cell.seed, pool, cell.check["sample"])
         arks = {i: kaldi_io.read_vec_ark(calls[i]["ark"])
                 for i in sorted({i for i, _ in chosen})}
-        feats, prog = [], []
+        items, prog = [], []
         dithered = {}
         for i, k in chosen:
             name = calls[i]["name"]
@@ -169,12 +174,9 @@ def run(cell, clock, device: str = "cuda"):
                                             rs["dither_seed"])
             _, _, _, segnum, start, length = expected[name][k]
             lab = (by_name[name][1][segnum] * fs).astype(int)
-            fea = ref.segment_features(dithered[name], lab, rs)
-            feats.append(fea[start:start + length])
+            items.append((dithered[name], lab, start, length))
             prog.append(arks[i][k])
-        ref_model.load_state_dict(state)
-        ref_model.to(device)
-        emb = ref.embed(ref_model, feats, device) if feats else []
+        emb = spec.reference(cell, state, device)(items) if items else []
         err = max((float(np.linalg.norm(p - r) / np.linalg.norm(r))
                    for p, r in zip(prog, emb)), default=0.0)
         checks = [("xvector_rel_err", err,

@@ -1,15 +1,20 @@
 """Nothing under benchmark/ imports a JAX package or vbx_tpu, compared by
-whole top-level name (vbx_tpu_torch is the program, not vbx_tpu), and the
-plain reference imports nothing of the program."""
+whole top-level name (vbx_tpu_torch is the program, not vbx_tpu), no
+extraction model's spec module loads one when it builds the program's
+extractor and its reference, and the plain reference imports nothing of
+the program."""
 
 import ast
 import os
+import subprocess
 import sys
 
 import pytest
 
-import bench_tiny  # noqa: F401  (puts the repository on sys.path)
+import bench_tiny
 from benchmark import harness
+
+MH = bench_tiny.with_held_out(harness.load_manifest())
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,6 +42,38 @@ def test_nothing_imports_jax_or_vbx_tpu():
     for path in files:
         bad = top_level_imports(path) & {"jax", "jaxlib", "flax", "vbx_tpu"}
         assert not bad, (path, bad)
+
+
+@pytest.mark.parametrize("workload", [
+    w["name"] for w in MH["workloads"]
+    if harness.Cell(MH, w["name"], 1, 0, False).traffic["driver"]
+    == "extract"])
+def test_spec_module_loads_no_jax_or_vbx_tpu(workload):
+    """In a fresh process: the cell's spec module builds the program's
+    extractor and the reference embeds one window, on the CPU; then no
+    forbidden module is loaded."""
+    code = f"""
+import sys
+sys.path[:0] = [{bench_tiny.REPO!r}, {os.path.join(BENCH, "tests")!r}]
+import numpy as np
+import bench_tiny
+from benchmark import harness
+from benchmark.drivers import extract
+cell = harness.Cell(bench_tiny.with_held_out(harness.load_manifest()),
+                    {workload!r}, 2 ** 31 + 3, 0, False)
+spec = extract.model_spec(cell)
+ext, state = spec.build(cell, "cpu")
+pcm = np.random.default_rng(0).standard_normal(32000) * 1000.0
+emb = spec.reference(cell, state, "cpu")([(pcm, np.array([0, 32000]), 0,
+                                           144)])
+assert emb.shape[0] == 1 and np.isfinite(emb).all()
+print(harness.forbidden_modules())
+"""
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert p.returncode == 0, p.stderr[-3000:]
+    assert p.stdout.strip().splitlines()[-1] == "[]", p.stdout
 
 
 def test_reference_imports_nothing_of_the_program():

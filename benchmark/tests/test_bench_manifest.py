@@ -10,6 +10,7 @@ import pytest
 
 import bench_tiny
 from benchmark import harness
+from benchmark.drivers import extract
 
 M = harness.load_manifest()
 # the manifest with benchmark/held_out.json's cells added back: they are
@@ -70,8 +71,18 @@ def test_every_cell_is_found_by_name(w):
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     assert w["chips"] == 1
     cell = harness.Cell(MH, w["name"], 1, 1.0, False)
-    assert cell.traffic["driver"] in ("corpus", "extract")
-    assert harness.driver(cell).run
+    # the harness's own rule: the mix names a module of benchmark/drivers/
+    # with `run`; an extraction cell's configuration, a spec module of
+    # benchmark/extraction_models/ with `build` and `reference`
+    drv = os.path.join(harness.BENCH_DIR, "drivers",
+                       f"{cell.traffic['driver']}.py")
+    assert os.path.isfile(drv), drv
+    assert callable(harness.driver(cell).run)
+    if cell.traffic["driver"] == "extract":
+        spec = extract.model_spec(cell)
+        assert os.path.dirname(spec.__file__) == os.path.join(
+            harness.BENCH_DIR, "extraction_models")
+        assert callable(spec.build) and callable(spec.reference)
     e2e = {m["name"] for m in cell.metrics("end_to_end")}
     assert "setup_s" in e2e and len(e2e) >= 2
     layers = cell.metrics("per_layer")

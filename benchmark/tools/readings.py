@@ -8,9 +8,10 @@ own size. For each seed:
   the configuration stores bfloat16; its AHC stays float64), and the
   label miss of the altered-answer fault planted in the reference (every
   other frame's label set to 0);
-- the extraction cell: a run of one call, and the control (the
-  reference's ResNet101 with TF32 on) against the reference on a sample
-  of the first file's windows.
+- an extraction cell: a run of one call, and the control (the plain
+  model of the configuration's spec module, benchmark/extraction_models/,
+  with TF32 on) against the reference on a sample of the first file's
+  windows.
 
     python3 benchmark/tools/readings.py <workload> <seed> [<seed> ...]
 
@@ -47,9 +48,9 @@ def numbers(names, refs, hyps, elbos):
 
 
 def extraction(cell, seed: int, device: str) -> dict:
-    """One seed of the extraction cell: the program's run (a window of one
-    call) and the control (the reference's ResNet101 with TF32 on) against
-    the reference on a sample of the first file's windows."""
+    """One seed of an extraction cell: the program's run (a window of one
+    call) and the control (the configuration's plain model with TF32 on)
+    against the reference on a sample of the first file's windows."""
     import numpy as np
 
     from vbx_tpu_torch.config import config_from_dict
@@ -65,17 +66,12 @@ def extraction(cell, seed: int, device: str) -> dict:
     rows = harness.sample(seed, xref.windows(name, vad, len(pcm), rs),
                           cell.check["sample"])
     sig = xref.dither(pcm, rs["dither_level"], rs["dither_seed"])
-    feats = []
-    for _, _, _, segnum, start, length in rows:
-        lab = (vad[segnum] * cfg.sample_rate).astype(int)
-        feats.append(xref.segment_features(sig, lab, rs)[start:start + length])
-    w = cell.config["widths"]
-    model = xref.ResNet101(w["feat_dim"], w["embed_dim"],
-                           w["resnet_m_channels"], w["resnet_blocks"])
-    model.load_state_dict(datagen.resnet_state(seed, model, device))
-    model.to(device)
-    base = xref.embed(model, feats, device)
-    ctl = xref.embed(model, feats, device, tf32=True)
+    items = [(sig, (vad[segnum] * cfg.sample_rate).astype(int), start,
+              length) for _, _, _, segnum, start, length in rows]
+    spec = extract.model_spec(cell)
+    _, state = spec.build(cell, device)
+    base = spec.reference(cell, state, device)(items)
+    ctl = spec.reference(cell, state, device, tf32=True)(items)
     err = max(float(np.linalg.norm(c - b) / np.linalg.norm(b))
               for c, b in zip(ctl, base))
     return {"seed": seed, "correct": result["correct"],
