@@ -11,6 +11,13 @@ and ignored (--device picks the card). `--backend` takes the reference's
 own 'pytorch' and 'onnx' (predict.py:96-97): both run the port's torch
 model, 'onnx' with weights read from the .onnx graph first-party (no
 onnxruntime). Run it as `python -m vbx_tpu_torch.cli.extract ...`.
+
+`--model WavLMBasePlusSV` runs WavLM Base Plus SV on raw 16 kHz samples
+(models/wavlm.py): `--weights` is a Hugging Face `WavLMForXVector` state
+dict (`pytorch_model.bin`, or `.safetensors` where that package imports),
+`--embed-dim` must be 512, and the ark holds 512-d vectors. `--backend
+onnx`, `--model-file` and `--dtype bfloat16` are refused for it; `--ndim`
+does not apply.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ import torch
 from vbx_tpu_torch.config import ExtractorConfig
 from vbx_tpu_torch.engine.extractor import XVectorExtractor, extract_to_ark
 
+WAVLM = "WavLMBasePlusSV"
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -33,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gpus", type=str, default="",
                    help="ignored (--device picks the card)")
     p.add_argument("--model", type=str, default="ResNet101",
-                   choices=["ResNet101", "ResNet34"])
+                   choices=["ResNet101", "ResNet34", WAVLM])
     p.add_argument("--weights", required=True, type=str,
                    help="torch .pth/.pt checkpoint or exported .onnx "
                         "(reference formats)")
@@ -69,12 +78,35 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _wavlm(args):
+    """WavLM Base Plus SV with the weights of --weights, after checking
+    the flags that do not apply to it."""
+    from vbx_tpu_torch.models.wavlm import load_wavlm_checkpoint
+
+    if args.backend == "onnx" or args.weights.endswith(".onnx"):
+        raise SystemExit(f"--model {WAVLM} reads a Hugging Face state dict "
+                         f"(pytorch_model.bin or .safetensors); --backend "
+                         f"onnx is not supported for it")
+    for bad, what in ((args.model_file, "--model-file"),
+                      (args.dtype != "float32", "--dtype bfloat16"),
+                      (args.sample_rate != 16000, "--sample-rate 8000")):
+        if bad:
+            raise SystemExit(f"{what} is not supported for --model {WAVLM}")
+    model = load_wavlm_checkpoint(args.weights)
+    if model.embed_dim != args.embed_dim:
+        raise SystemExit(f"--embed-dim {args.embed_dim} != {WAVLM} embedding "
+                         f"width {model.embed_dim}")
+    return model
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     args = build_parser().parse_args(argv)
 
     dtype = getattr(torch, args.dtype)
-    if args.backend == "onnx" or args.weights.endswith(".onnx"):
+    if args.model == WAVLM:
+        model = _wavlm(args)
+    elif args.backend == "onnx" or args.weights.endswith(".onnx"):
         from vbx_tpu_torch.models.onnx_import import load_onnx_checkpoint
         model = load_onnx_checkpoint(args.weights, feat_dim=args.ndim,
                                      dtype=dtype)

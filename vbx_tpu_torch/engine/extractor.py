@@ -21,6 +21,21 @@ On the device:
   embedding. Embeddings stay on the device until the file is done and
   cross to the host in one copy.
 
+A model whose `input_kind` is "waveform" (models/wavlm.py) eats raw
+samples instead: no fbank or CMVN; each VAD segment's frame count comes
+from the same arithmetic (mirror-padded length, (padded - winlen) // shift
++ 1), so the windows, keys, times and segments rows are the fbank path's.
+Window k of segment (a, b) with frames [s, s + L) is the dithered samples
+[a + shift s, min(a + shift (s + L), b)) / 32768, gathered on the device
+from the file's one upload; no per-window normalization. A window shorter
+than the model's `min_samples` is tiled up to it. Full windows run first
+in unmasked batches (`lengths=None`), the tails after them with their
+lengths, and the embeddings return to ark order on the device. The
+batches of a file (WAVE_CHUNK at a time) go through the model stage by
+stage, each stage a span (`vbx.wavlm.frontend`, `.encoder`, `.head`)
+that ends on a device synchronize, so a span's host time is its card
+time.
+
 Only wav decode, dither and ark writing run on the host; extract_to_ark
 decodes and dithers the next file on its reader thread while the device
 embeds the current one. Everything runs under
@@ -44,6 +59,7 @@ import torch
 
 from vbx_tpu_torch.config import ExtractorConfig
 from vbx_tpu_torch.device import DeviceLike, full_fp32_matmuls, resolve_device
+from vbx_tpu_torch.models import wavlm
 from vbx_tpu_torch.models.features import (add_dither, cmvn_floating,
                                            cmvn_floating_masked,
                                            fbank_config, fbank_htk)
@@ -52,6 +68,7 @@ from vbx_tpu_torch.utils.profiling import annotate
 logger = logging.getLogger(__name__)
 
 SEG_GROUP = 8   # VAD segments of like length computed together
+WAVE_CHUNK = 64  # waveform batches of a file whose stage outputs are held
 
 
 @dataclasses.dataclass
@@ -93,6 +110,7 @@ class XVectorExtractor:
         self.noverlap = noverlap
         self.shift = winlen - noverlap
         self.model = model.to(self.device).eval()
+        self.input_kind = getattr(model, "input_kind", "fbank")
 
     # -- feature stage ----------------------------------------------------
 
@@ -214,27 +232,39 @@ class XVectorExtractor:
         if slen - start - cfg.seg_jump >= cfg.min_tail_frames:
             yield start + cfg.seg_jump, slen - start - cfg.seg_jump
 
+    def _file_windows(self, segments: Sequence[Tuple[int, int, int]],
+                      labs: np.ndarray, name: str
+                      ) -> Iterator[Tuple[int, int, int,
+                                          Tuple[str, float, float]]]:
+        """(index into `segments`, first frame, frames, (key, start s, end
+        s)) of every window over `segments` ((segnum, offset, n_frames)),
+        in ark order."""
+        cfg = self.config
+        fs = float(self.sample_rate)
+        for i, (segnum, _, slen) in enumerate(segments):
+            t0 = labs[segnum, 0] / fs
+            for start, length in self.iter_windows(slen):
+                key = f"{name}_{segnum:04}-{start:08}-{start + length:08}"
+                if length == cfg.seg_len:
+                    end = round(t0 + start / 100.0 + cfg.seg_len / 100.0, 3)
+                else:
+                    end = round(labs[segnum, 1] / fs, 3)
+                yield i, start, length, (key, round(t0 + start / 100.0, 3),
+                                         end)
+
     def windows(self, feats: FileFeatures, name: str
                 ) -> Tuple[List[int], List[int], List[Tuple[str, float,
                                                            float]]]:
         """(stream row of each window's start, its length, (key, start s,
         end s)) for every window of the file, in ark order."""
-        cfg = self.config
-        fs = float(self.sample_rate)
         starts: List[int] = []
         lengths: List[int] = []
         meta: List[Tuple[str, float, float]] = []
-        for segnum, off, slen in feats.segments:
-            t0 = feats.labs[segnum, 0] / fs
-            for start, length in self.iter_windows(slen):
-                starts.append(off + start)
-                lengths.append(length)
-                key = f"{name}_{segnum:04}-{start:08}-{start + length:08}"
-                if length == cfg.seg_len:
-                    end = round(t0 + start / 100.0 + cfg.seg_len / 100.0, 3)
-                else:
-                    end = round(feats.labs[segnum, 1] / fs, 3)
-                meta.append((key, round(t0 + start / 100.0, 3), end))
+        for i, start, length, m in self._file_windows(feats.segments,
+                                                       feats.labs, name):
+            starts.append(feats.segments[i][1] + start)
+            lengths.append(length)
+            meta.append(m)
         return starts, lengths, meta
 
     # -- embedding stage --------------------------------------------------
@@ -261,27 +291,10 @@ class XVectorExtractor:
                          name: str) -> List[ExtractedSegment]:
         """extract_file of a signal `dither` has already dithered."""
         with torch.inference_mode(), full_fp32_matmuls():
-            with annotate("vbx.extract.features"):
-                feats = self.dithered_features(dithered, labs_s)
-            with annotate("vbx.extract.embed"):
-                starts, lengths, meta = self.windows(feats, name)
-                if not meta:
-                    return []
-                B = self.batch_size
-                n = len(starts)
-                pad = -n % B               # the last batch is filled up
-                seg_len = self.config.seg_len
-                lengths = lengths + [seg_len] * pad
-                st = torch.tensor(starts + [0] * pad, device=self.device)
-                ln = torch.tensor(lengths, device=self.device)
-                # a batch of full windows needs no mask (its lengths would
-                # zero nothing)
-                embs = torch.cat([
-                    self.embed_batch(feats.stream, st[i:i + B],
-                                     None if min(lengths[i:i + B]) == seg_len
-                                     else ln[i:i + B])
-                    for i in range(0, n + pad, B)])
-                emb = embs[:n].float().cpu().numpy()
+            if self.input_kind == "waveform":
+                meta, emb = self._embed_waveform(dithered, labs_s, name)
+            else:
+                meta, emb = self._embed_fbank(dithered, labs_s, name)
         out: List[ExtractedSegment] = []
         for (key, s, e), vec in zip(meta, emb):
             if np.isnan(vec).any():
@@ -289,6 +302,133 @@ class XVectorExtractor:
                 continue
             out.append(ExtractedSegment(key, s, e, vec))
         return out
+
+    def _embed_fbank(self, dithered, labs_s, name):
+        """(window meta, embeddings [n, embed_dim]) of the fbank path."""
+        with annotate("vbx.extract.features"):
+            feats = self.dithered_features(dithered, labs_s)
+        with annotate("vbx.extract.embed"):
+            starts, lengths, meta = self.windows(feats, name)
+            if not meta:
+                return [], []
+            B = self.batch_size
+            n = len(starts)
+            pad = -n % B               # the last batch is filled up
+            seg_len = self.config.seg_len
+            lengths = lengths + [seg_len] * pad
+            st = torch.tensor(starts + [0] * pad, device=self.device)
+            ln = torch.tensor(lengths, device=self.device)
+            # a batch of full windows needs no mask (its lengths would
+            # zero nothing)
+            embs = torch.cat([
+                self.embed_batch(feats.stream, st[i:i + B],
+                                 None if min(lengths[i:i + B]) == seg_len
+                                 else ln[i:i + B])
+                for i in range(0, n + pad, B)])
+            return meta, embs[:n].float().cpu().numpy()
+
+    # -- raw-waveform stream ------------------------------------------------
+
+    def wave_segments(self, n_samples: int, labs_s: np.ndarray
+                      ) -> Tuple[List[Tuple[int, int, int]], np.ndarray]:
+        """([(segnum, first sample, n_frames)] of the VAD segments the fbank
+        path keeps, VAD [V, 2] in samples): each segment's frame count by
+        the fbank path's arithmetic on its mirror-padded length, with no
+        features computed."""
+        fs = self.sample_rate
+        labs = np.atleast_2d((np.asarray(labs_s) * fs).astype(int))
+        h, w2 = self.noverlap // 2, self.winlen // 2
+        segments = []
+        for segnum, (a, b) in enumerate(labs):
+            n = max(0, min(b, n_samples) - min(a, n_samples))
+            if n <= 0.01 * fs:
+                continue
+            padded = min(h, n) + n + min(w2, n)
+            segments.append((segnum, int(a),
+                             (padded - self.winlen) // self.shift + 1))
+        return segments, labs
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _wave_batch(self, sig: torch.Tensor, st: torch.Tensor,
+                    own: Optional[torch.Tensor], eff: torch.Tensor
+                    ) -> torch.Tensor:
+        """[B, full] samples of the windows starting at `st`: `own` samples
+        long each, tiled up to `eff` and zero past it (own=None: all
+        full)."""
+        ar = torch.arange(self.config.seg_len * self.shift, device=sig.device)
+        if own is None:
+            return sig[st[:, None] + ar]
+        x = sig[st[:, None] + ar[None, :] % own[:, None]]
+        return torch.where(ar[None, :] < eff[:, None], x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def _embed_waveform(self, dithered, labs_s, name):
+        """(window meta, embeddings [n, embed_dim]) of a waveform model:
+        the windows of the fbank path cut from the samples; full windows
+        first, then the tails with lengths; stage by stage."""
+        model = self.model
+        full = self.config.seg_len * self.shift
+        with annotate("vbx.extract.features"):
+            segments, labs = self.wave_segments(len(dithered), labs_s)
+            rows = list(self._file_windows(segments, labs, name))
+            if not rows:
+                return [], []
+            seg_end = [min(labs[s, 1], len(dithered)) for s, _, _ in segments]
+            first = np.array([segments[i][1] + self.shift * start
+                              for i, start, _, _ in rows], np.int64)
+            own = np.minimum(np.array([self.shift * length
+                                       for _, _, length, _ in rows]),
+                             np.array([seg_end[i] for i, _, _, _ in rows])
+                             - first)
+            sig = torch.zeros(len(dithered) + full, dtype=torch.float32,
+                              device=self.device)
+            sig[:len(dithered)] = torch.from_numpy(
+                dithered.astype(np.float32)).to(self.device)
+            sig /= 32768.0
+        with annotate("vbx.extract.embed"):
+            B = self.batch_size
+            n = len(rows)
+            tail = own < full
+            order = np.argsort(tail, kind="stable")        # full first
+            pad = -n % B
+            st = np.concatenate([first[order], np.zeros(pad, np.int64)])
+            ln = np.concatenate([own[order], np.full(pad, full)])
+            eff = np.maximum(ln, model.min_samples)
+            wavlm.add_counts(windows=n, masked_windows=tail.sum(),
+                             tiled_windows=(own < model.min_samples).sum(),
+                             samples=own.sum(), batches=(n + pad) // B,
+                             pad_slots=pad)
+            st_d, ln_d, eff_d = (torch.from_numpy(v).to(self.device)
+                                 for v in (st, ln, eff))
+            embs = []
+            for c0 in range(0, n + pad, B * WAVE_CHUNK):
+                batches = []
+                for i in range(c0, min(c0 + B * WAVE_CHUNK, n + pad), B):
+                    masked = ln[i:i + B].min() < full
+                    batches.append((slice(i, i + B), masked))
+                with annotate("vbx.wavlm.frontend"):
+                    stage = [model.frontend(
+                        self._wave_batch(sig, st_d[b], ln_d[b] if m else None,
+                                         eff_d[b]),
+                        eff_d[b] if m else None) for b, m in batches]
+                    self._sync()
+                with annotate("vbx.wavlm.encoder"):
+                    for j, (h, frames) in enumerate(stage):
+                        stage[j] = (model.encode(h, frames), frames)
+                    self._sync()
+                with annotate("vbx.wavlm.head"):
+                    for j, (h, frames) in enumerate(stage):
+                        embs.append(model.head(h, frames))
+                        stage[j] = None
+                    self._sync()
+            emb = torch.empty((n, model.embed_dim), dtype=torch.float32,
+                              device=self.device)
+            emb[torch.from_numpy(order).to(self.device)] = \
+                torch.cat(embs)[:n].float()
+            return [m for _, _, _, m in rows], emb.cpu().numpy()
 
 
 def extract_to_ark(wav_paths: Sequence[str], lab_paths: Sequence[str],
