@@ -1495,7 +1495,7 @@ def extraction_path(work: str) -> dict:
         "ms_per_recording": ms, "frames": frames,
         "ms_per_128_windows": ms * EXTRACT_BATCH / want[names[0]],
         "tflop_per_s": cost["ops"] / ms / 1e9,
-        "with_host_dither_ms": with_dither, "cold_fft_plans_ms": cold,
+        "with_dither_ms": with_dither, "cold_fft_plans_ms": cold,
         "audio_s_per_s": EXTRACT_SECONDS[0] / ms * 1e3,
         "windows_per_s": want[names[0]] / ms * 1e3,
         "bound_ms": max(cost["ops"] / F32_OPS_PER_S,
@@ -2941,8 +2941,8 @@ def main() -> int:
     f = xp["timing"]["fbank_cmvn"]
     print(f"fbank + CMVN of one {EXTRACT_SECONDS[0]:.0f} s recording "
           f"({f['frames']} frames): {f['ms_per_recording']:.3f} ms (median "
-          f"of 5, CUDA events; {f['with_host_dither_ms']:.1f} ms with the "
-          f"host dither, {f['cold_fft_plans_ms']:.1f} ms making its cuFFT "
+          f"of 5, CUDA events; {f['with_dither_ms']:.1f} ms with the "
+          f"dither, {f['cold_fft_plans_ms']:.1f} ms making its cuFFT "
           f"plans anew), {f['ms_per_128_windows']:.3f} ms per 128 "
           f"windows, {f['audio_s_per_s']:.0f} audio s/s, "
           f"{f['windows_per_s']:.0f} windows/s, {f['tflop_per_s']:.3f} "

@@ -500,6 +500,32 @@ def test_extraction_on_a_card_matches_the_cpu():
                                atol=2e-4 * np.abs(alone).max())
 
 
+@pytest.mark.gpu
+def test_device_dither_on_a_card_is_the_host_dither_bit_for_bit():
+    """The extractor's dither on the card (int16 upload, kept float64
+    noise, one rounding to float32) against `add_dither(...).astype(
+    np.float32)` bit for bit, as its kept noise grows past a chunk of a
+    sum, is sliced, and grows again; integers past full scale too."""
+    _need_card()
+    from vbx_tpu_torch.engine.extractor import DITHER_CHUNK, XVectorExtractor
+    from vbx_tpu_torch.models.features import add_dither
+    from vbx_tpu_torch.models.resnet import Bottleneck, ResNetXVector
+
+    e = XVectorExtractor(ResNetXVector(Bottleneck, (1, 1, 1, 1), 8, 64, 32),
+                         16000, device="cuda")
+    rng = np.random.default_rng(0)
+    for n in (16000, 2 * DITHER_CHUNK + 7, 999, 3 * DITHER_CHUNK):
+        ints = rng.integers(-2 ** 15, 2 ** 15, n).astype(np.int16)
+        got = e.dither_ints(ints).cpu().numpy()
+        want = add_dither(ints.astype(int), 8.0, 3).astype(np.float32)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    wide = rng.integers(-2 ** 17, 2 ** 17, 100000)
+    np.testing.assert_array_equal(
+        e.dither_ints(wide).cpu().numpy().view(np.int32),
+        add_dither(wide, 8.0, 3).astype(np.float32).view(np.int32))
+
+
 def _walk_inputs(ns, D, seed, K=8):
     """[M, max(ns), D] float64 l2-normalized clustered rows (lane m's first
     ns[m] valid) and each lane's rows."""

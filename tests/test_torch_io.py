@@ -160,6 +160,16 @@ def test_wav_reader_is_vbx_tpus(tmp_path, kind):
     assert got[1] == ref[1]
     assert got[0].dtype == ref[0].dtype == np.float64
     np.testing.assert_array_equal(got[0], ref[0])
+    # the extractor's reader: a 16-bit mono file's int16 as stored, whose
+    # dither integers are the float decode's; any other file decoded
+    raw, fs = t_wav.read_wav_pcm16(path)
+    assert fs == got[1]
+    if kind in ("i16", "ours"):
+        assert raw.dtype == np.int16 and raw.flags.writeable
+        np.testing.assert_array_equal(raw, (got[0] * 2 ** 15).astype(int))
+    else:
+        assert raw.dtype == np.float64
+        np.testing.assert_array_equal(raw, got[0])
 
 
 def test_vad_labels_are_vbx_tpus(tmp_path):

@@ -179,7 +179,7 @@ def test_pre_stage_pass_writes_the_walk_deltas(tmp_path, monkeypatch):
 
 def test_extract_to_ark_leaves_its_four_spans(tmp_path):
     from vbx_tpu_torch.engine.extractor import XVectorExtractor, \
-        extract_to_ark
+        dither_counters, extract_to_ark
     from vbx_tpu_torch.models.resnet import Bottleneck, ResNetXVector
     from vbx_tpu_torch.testing import write_audio_corpus
 
@@ -188,6 +188,7 @@ def test_extract_to_ark_leaves_its_four_spans(tmp_path):
     model = ResNetXVector(Bottleneck, (1, 1, 1, 1), m_channels=8,
                           feat_dim=64, embed_dim=32)
     ext = XVectorExtractor(model, 16000, batch_size=8, device="cpu")
+    before = dither_counters()
     with profiling.trace(str(tmp_path / "trace")):
         counts = extract_to_ark(wavs, labs, names, str(tmp_path / "x.ark"),
                                 str(tmp_path / "x.seg"), ext)
@@ -196,3 +197,8 @@ def test_extract_to_ark_leaves_its_four_spans(tmp_path):
     for span in ("vbx.extract.load_wait", "vbx.extract.features",
                  "vbx.extract.embed", "vbx.extract.write"):
         assert spans.count(span) == 1, span
+    # the 16-bit wav's samples, dithered on the device against noise drawn
+    # once for the new extractor
+    assert dither_counters(before) == {
+        "files": 1, "samples": 3 * 16000, "noise_draws": 1,
+        "noise_samples": 3 * 16000, "host_int_files": 0}

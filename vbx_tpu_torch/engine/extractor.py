@@ -8,10 +8,18 @@ sliding 144-frame windows with a 24-frame hop plus the >=10-frame tail
 (:179-210), the same segment keys and times, and the NaN guard (:185-186).
 
 On the device:
-- the dithered signal is uploaded once per file; each VAD segment is
-  sliced and mirror-padded by index arithmetic; the segments, sorted by
-  length, go through fbank + masked CMVN SEG_GROUP at a time, each group
-  zero-padded to its own longest segment;
+- the file's 16-bit integers are uploaded once (int16, as a 16-bit PCM
+  wav stores them) and dithered there: float32(float64(ints) + noise),
+  the noise being the first N numbers of level * (U[0, 1) * 2 - 1) from
+  RandomState(seed). Every file draws the same sequence from its start,
+  so the extractor draws it once, keeps it on the device in float64, and
+  draws only the missing tail from the kept generator for a longer file
+  (a generator's draws in pieces concatenate to one draw of the whole).
+  The sum and its one rounding are the host's `dither(...).astype(
+  np.float32)` bit for bit;
+- each VAD segment is sliced and mirror-padded by index arithmetic; the
+  segments, sorted by length, go through fbank + masked CMVN SEG_GROUP
+  at a time, each group zero-padded to its own longest segment;
 - the valid feature rows of every segment are concatenated into one
   stream, followed by seg_len zero rows, so that no window gather reads
   past its end (a torch index past the end would be a device-side assert);
@@ -36,22 +44,25 @@ stage, each stage a span (`vbx.wavlm.frontend`, `.encoder`, `.head`)
 that ends on a device synchronize, so a span's host time is its card
 time.
 
-Only wav decode, dither and ark writing run on the host; extract_to_ark
-decodes and dithers the next file on its reader thread while the device
-embeds the current one. Everything runs under
-`device.full_fp32_matmuls()`, so float32 convolutions and products do not
-drop to TF32; the bfloat16 model runs its convolutions in bfloat16 either
-way. `torch.backends.cudnn.benchmark` is left as the caller set it (off by
-default): on an H100 it picked no faster algorithm for the fixed
-[128, 64, 144] batch, in float32 or bfloat16, NCHW or channels_last
-(scripts/torch_profile.py extract), and without it the algorithm does not
-change from run to run.
+Only wav decode, the noise's draws and ark writing run on the host;
+extract_to_ark reads the next file (and draws any noise it needs past
+what is kept) on its reader thread while the device embeds the current
+one. `dither_counters()` counts the files and samples dithered, the
+noise's draws and the files whose integers came from a float decode.
+Everything runs under `device.full_fp32_matmuls()`, so float32
+convolutions and products do not drop to TF32; the bfloat16 model runs
+its convolutions in bfloat16 either way. `torch.backends.cudnn.benchmark`
+is left as the caller set it (off by default): on an H100 it picked no
+faster algorithm for the fixed [128, 64, 144] batch, in float32 or
+bfloat16, NCHW or channels_last (scripts/torch_profile.py extract), and
+without it the algorithm does not change from run to run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -69,6 +80,41 @@ logger = logging.getLogger(__name__)
 
 SEG_GROUP = 8   # VAD segments of like length computed together
 WAVE_CHUNK = 64  # waveform batches of a file whose stage outputs are held
+DITHER_CHUNK = 1 << 22  # samples a float64 sum of the device dither holds
+
+_DITHER_LOCK = threading.Lock()
+# cumulative over every extractor: files and samples dithered on the
+# device, the noise's draws and the samples they drew (draws over samples
+# dithered is the kept noise's miss share), and files whose integers came
+# from a float decode (any wav but 16-bit PCM mono)
+_DITHER_COUNTERS = dict.fromkeys(("files", "samples", "noise_draws",
+                                  "noise_samples", "host_int_files"), 0)
+
+
+def dither_counters(since: Optional[dict] = None) -> dict:
+    """A snapshot of the device dither's cumulative counters; given an
+    earlier snapshot, the counts since it."""
+    with _DITHER_LOCK:
+        now = dict(_DITHER_COUNTERS)
+    if since is None:
+        return now
+    return {k: v - since[k] for k, v in now.items()}
+
+
+def _count_dither(**counts: int) -> None:
+    with _DITHER_LOCK:
+        for k, v in counts.items():
+            _DITHER_COUNTERS[k] += int(v)
+
+
+def pcm_ints(signal: np.ndarray) -> np.ndarray:
+    """`dither`'s integers of a signal in [-1, 1): (signal * 2**15)
+    .astype(int), as int16 where every one fits (a float wav may hold
+    samples past full scale, which stay int64)."""
+    ints = (np.asarray(signal) * 2 ** 15).astype(int)
+    if not ints.size or (ints.min() >= -2 ** 15 and ints.max() < 2 ** 15):
+        return ints.astype(np.int16)
+    return ints
 
 
 @dataclasses.dataclass
@@ -111,6 +157,11 @@ class XVectorExtractor:
         self.shift = winlen - noverlap
         self.model = model.to(self.device).eval()
         self.input_kind = getattr(model, "input_kind", "fbank")
+        # the dither noise drawn so far, its generator and its (seed, level)
+        self._noise_lock = threading.Lock()
+        self._noise_key: Optional[Tuple[int, float]] = None
+        self._noise_rng: Optional[np.random.RandomState] = None
+        self._noise = torch.empty(0, dtype=torch.float64, device=self.device)
 
     # -- feature stage ----------------------------------------------------
 
@@ -119,16 +170,15 @@ class XVectorExtractor:
                          noverlap=self.noverlap, use_power=True,
                          zmean_source=True)
 
-    def segment_features(self, seg_signal: np.ndarray) -> torch.Tensor:
-        """Features [n_frames, 64] of a VAD segment shorter than one
-        analysis window: the reference's mirror padding on the host, whose
-        slices truncate on such a segment (np.r_[head-mirror, seg,
-        tail-mirror], predict.py:169-171)."""
-        seg = np.concatenate([
-            seg_signal[self.noverlap // 2 - 1::-1],
-            seg_signal,
-            seg_signal[-1:-self.winlen // 2 - 1:-1]])
-        x = torch.tensor(seg, dtype=torch.float32, device=self.device)
+    def segment_features(self, seg_signal) -> torch.Tensor:
+        """Features [n_frames, 64] of a VAD segment (a host array or a
+        tensor) shorter than one analysis window: the reference's mirror
+        padding, whose slices truncate on such a segment (np.r_[
+        head-mirror, seg, tail-mirror], predict.py:169-171)."""
+        seg = torch.as_tensor(seg_signal, dtype=torch.float32,
+                              device=self.device)
+        x = torch.cat([seg[:self.noverlap // 2].flip(0), seg,
+                       seg[-(self.winlen // 2):].flip(0)])
         cfg = self.config
         return cmvn_floating(self._fbank(x), cfg.cmvn_lc, cfg.cmvn_rc)
 
@@ -157,22 +207,78 @@ class XVectorExtractor:
 
     def dither(self, signal: np.ndarray) -> np.ndarray:
         """The file's signal in [-1, 1), scaled to 16-bit integers and
-        dithered (predict.py:163-164), on the host. Thread-safe: each call
-        draws from its own generator."""
+        dithered (predict.py:163-164), on the host: the reference of
+        `dither_ints`. Thread-safe: each call draws from its own
+        generator."""
         cfg = self.config
         return add_dither((signal * 2 ** 15).astype(int), cfg.dither_level,
                           cfg.dither_seed)
 
+    def dither_noise(self, n: int) -> torch.Tensor:
+        """The kept dither noise, float64 on the device, at least `n`
+        long: level * (rand * 2 - 1) of RandomState(seed) (the config's
+        dither_seed and dither_level), the numbers `dither` adds. Only the
+        samples past those kept are drawn, from the kept generator; a new
+        (seed, level) starts a new sequence. Thread-safe."""
+        cfg = self.config
+        key = (cfg.dither_seed, cfg.dither_level)
+        with self._noise_lock:
+            if key != self._noise_key:
+                self._noise_key = key
+                self._noise_rng = np.random.RandomState(cfg.dither_seed)
+                self._noise = torch.empty(0, dtype=torch.float64,
+                                          device=self.device)
+            have = self._noise.shape[0]
+            if n > have:
+                tail = torch.from_numpy(self._noise_rng.rand(n - have))
+                noise = torch.empty(n, dtype=torch.float64,
+                                    device=self.device)
+                noise[:have] = self._noise
+                # numpy's order of operations, each rounded in float64
+                noise[have:] = tail.to(self.device).mul_(2).sub_(1).mul_(
+                    cfg.dither_level)
+                self._noise = noise
+                _count_dither(noise_draws=1, noise_samples=n - have)
+            return self._noise
+
+    def dither_ints(self, ints: np.ndarray) -> torch.Tensor:
+        """`dither(signal).astype(np.float32)` on the device, bit for bit,
+        from the signal's integers (`pcm_ints`, or a 16-bit PCM wav's
+        samples): they are uploaded as they are, and float64(ints) +
+        noise is rounded once to float32, DITHER_CHUNK samples at a time."""
+        if ints.dtype.kind not in "iu":
+            raise TypeError(f"dither_ints takes integers, not {ints.dtype}")
+        n = len(ints)
+        noise = self.dither_noise(n)[:n]
+        x = torch.from_numpy(ints).to(self.device)
+        out = torch.empty(n, dtype=torch.float32, device=self.device)
+        for c0 in range(0, n, DITHER_CHUNK):
+            c = slice(c0, c0 + DITHER_CHUNK)
+            out[c] = x[c].to(torch.float64).add_(noise[c])
+        _count_dither(files=1, samples=n)
+        return out
+
+    def _upload(self, dithered: np.ndarray) -> torch.Tensor:
+        """A host-dithered signal as float32 on the device."""
+        return torch.from_numpy(dithered.astype(np.float32)).to(self.device)
+
     def features(self, signal: np.ndarray, labs_s: np.ndarray
                  ) -> FileFeatures:
-        """Dither the file, then compute every VAD segment's features on
-        the device."""
-        return self.dithered_features(self.dither(signal), labs_s)
+        """Dither the file on the device, then compute every VAD segment's
+        features there."""
+        with torch.inference_mode():
+            return self._features(self.dither_ints(pcm_ints(signal)), labs_s)
 
     def dithered_features(self, signal: np.ndarray, labs_s: np.ndarray
                           ) -> FileFeatures:
-        """Every VAD segment's features of a dithered signal, on the
+        """Every VAD segment's features of a host-dithered signal, on the
         device (one upload of the signal)."""
+        return self._features(self._upload(signal), labs_s)
+
+    def _features(self, signal: torch.Tensor, labs_s: np.ndarray
+                  ) -> FileFeatures:
+        """Every VAD segment's features of the dithered float32 signal on
+        the device."""
         cfg = self.config
         fs = self.sample_rate
         labs = np.atleast_2d((np.asarray(labs_s) * fs).astype(int))
@@ -198,12 +304,11 @@ class XVectorExtractor:
         # to its longest; every group's (start, length, frames) in one upload
         plan.sort()
         if plan:
-            sig = torch.from_numpy(signal.astype(np.float32)).to(self.device)
             table = torch.tensor([it[2:] for it in plan], device=self.device)
         for g0 in range(0, len(plan), SEG_GROUP):
             group = plan[g0:g0 + SEG_GROUP]
             cols = table[g0:g0 + len(group)]
-            out = self._group_features(sig, cols[:, 0], cols[:, 1],
+            out = self._group_features(signal, cols[:, 0], cols[:, 1],
                                        cols[:, 2], group[-1][0])
             for row, (_, segnum, _, _, n_true) in enumerate(group):
                 feas[segnum] = out[row, :n_true]
@@ -285,16 +390,31 @@ class XVectorExtractor:
     def extract_file(self, signal: np.ndarray, labs_s: np.ndarray,
                      name: str) -> List[ExtractedSegment]:
         """signal: [N] float in [-1, 1); labs_s: [V, 2] VAD (seconds)."""
-        return self.extract_dithered(self.dither(signal), labs_s, name)
+        return self.extract_ints(pcm_ints(signal), labs_s, name)
+
+    def extract_ints(self, ints: np.ndarray, labs_s: np.ndarray,
+                     name: str) -> List[ExtractedSegment]:
+        """extract_file of the signal whose integers are `ints`
+        (`pcm_ints`, or a 16-bit PCM wav's samples), dithered on the
+        device."""
+        return self._extract(ints, self.dither_ints, labs_s, name)
 
     def extract_dithered(self, dithered: np.ndarray, labs_s: np.ndarray,
                          name: str) -> List[ExtractedSegment]:
         """extract_file of a signal `dither` has already dithered."""
+        return self._extract(dithered, self._upload, labs_s, name)
+
+    def _extract(self, samples, to_device, labs_s, name):
+        """The file's segments from `samples`, which `to_device` turns
+        into the dithered float32 signal on the device, inside the
+        features span (the span that holds the signal's upload)."""
         with torch.inference_mode(), full_fp32_matmuls():
             if self.input_kind == "waveform":
-                meta, emb = self._embed_waveform(dithered, labs_s, name)
+                meta, emb = self._embed_waveform(samples, to_device, labs_s,
+                                                 name)
             else:
-                meta, emb = self._embed_fbank(dithered, labs_s, name)
+                meta, emb = self._embed_fbank(samples, to_device, labs_s,
+                                              name)
         out: List[ExtractedSegment] = []
         for (key, s, e), vec in zip(meta, emb):
             if np.isnan(vec).any():
@@ -303,10 +423,10 @@ class XVectorExtractor:
             out.append(ExtractedSegment(key, s, e, vec))
         return out
 
-    def _embed_fbank(self, dithered, labs_s, name):
+    def _embed_fbank(self, samples, to_device, labs_s, name):
         """(window meta, embeddings [n, embed_dim]) of the fbank path."""
         with annotate("vbx.extract.features"):
-            feats = self.dithered_features(dithered, labs_s)
+            feats = self._features(to_device(samples), labs_s)
         with annotate("vbx.extract.embed"):
             starts, lengths, meta = self.windows(feats, name)
             if not meta:
@@ -365,28 +485,28 @@ class XVectorExtractor:
         return torch.where(ar[None, :] < eff[:, None], x,
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def _embed_waveform(self, dithered, labs_s, name):
+    def _embed_waveform(self, samples, to_device, labs_s, name):
         """(window meta, embeddings [n, embed_dim]) of a waveform model:
         the windows of the fbank path cut from the samples; full windows
         first, then the tails with lengths; stage by stage."""
         model = self.model
         full = self.config.seg_len * self.shift
         with annotate("vbx.extract.features"):
-            segments, labs = self.wave_segments(len(dithered), labs_s)
+            n_samples = len(samples)
+            segments, labs = self.wave_segments(n_samples, labs_s)
             rows = list(self._file_windows(segments, labs, name))
             if not rows:
                 return [], []
-            seg_end = [min(labs[s, 1], len(dithered)) for s, _, _ in segments]
+            seg_end = [min(labs[s, 1], n_samples) for s, _, _ in segments]
             first = np.array([segments[i][1] + self.shift * start
                               for i, start, _, _ in rows], np.int64)
             own = np.minimum(np.array([self.shift * length
                                        for _, _, length, _ in rows]),
                              np.array([seg_end[i] for i, _, _, _ in rows])
                              - first)
-            sig = torch.zeros(len(dithered) + full, dtype=torch.float32,
+            sig = torch.zeros(n_samples + full, dtype=torch.float32,
                               device=self.device)
-            sig[:len(dithered)] = torch.from_numpy(
-                dithered.astype(np.float32)).to(self.device)
+            sig[:n_samples] = to_device(samples)
             sig /= 32768.0
         with annotate("vbx.extract.embed"):
             B = self.batch_size
@@ -444,21 +564,25 @@ def extract_to_ark(wav_paths: Sequence[str], lab_paths: Sequence[str],
     from vbx_tpu_torch.io.ark import write_vec_ark
     from vbx_tpu_torch.io.segments import write_segments
     from vbx_tpu_torch.io.vad import read_lab
-    from vbx_tpu_torch.io.wav import read_wav
+    from vbx_tpu_torch.io.wav import read_wav_pcm16
     from vbx_tpu_torch.utils.timing import Timer
 
     def load(wav, lab):
-        signal, fs = read_wav(wav)
-        if signal.ndim > 1:
-            signal = signal.mean(axis=1)
-        return extractor.dither(signal), fs, read_lab(lab)
+        samples, fs = read_wav_pcm16(wav)
+        if samples.dtype != np.int16:      # dither's integers of the decode
+            if samples.ndim > 1:
+                samples = samples.mean(axis=1)
+            samples = pcm_ints(samples)
+            _count_dither(host_int_files=1)
+        extractor.dither_noise(len(samples))
+        return samples, fs, read_lab(lab)
 
     counts: Dict[str, int] = {}
     vecs: List[Tuple[str, np.ndarray]] = []
     rows: List[Tuple[str, str, float, float]] = []
     files = list(zip(wav_paths, lab_paths, names))
-    # one-deep prefetch: decode and dither file i+1 on a reader thread
-    # while the device embeds file i
+    # one-deep prefetch: read file i+1 (and draw the noise it needs past
+    # the kept noise) on a reader thread while the device embeds file i
     with ThreadPoolExecutor(max_workers=1) as io_pool:
         nxt = io_pool.submit(load, *files[0][:2]) if files else None
         for idx, (wav, lab, name) in enumerate(files):
@@ -467,13 +591,12 @@ def extract_to_ark(wav_paths: Sequence[str], lab_paths: Sequence[str],
             try:
                 with Timer(f"Processing file {name}"):
                     with annotate("vbx.extract.load_wait"):
-                        dithered, fs, lab_segs = fut.result()
+                        ints, fs, lab_segs = fut.result()
                     if fs != extractor.sample_rate:
                         raise ValueError(
                             f"{wav}: sample rate {fs} != extractor "
                             f"{extractor.sample_rate}")
-                    segs = extractor.extract_dithered(dithered, lab_segs,
-                                                      name)
+                    segs = extractor.extract_ints(ints, lab_segs, name)
             except Exception as exc:   # noqa: BLE001 — per-file isolation
                 if len(files) == 1:
                     raise

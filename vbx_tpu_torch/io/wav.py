@@ -4,7 +4,9 @@ neither). A copy of vbx_tpu's reader.
 
 Supports PCM 8/16/24/32-bit and IEEE float32/64, mono or multichannel,
 returning float64 samples normalized to [-1, 1) exactly like
-soundfile.read's default."""
+soundfile.read's default. read_wav_pcm16 hands a 16-bit PCM mono file's
+samples over as the int16 it stores: they are the integers the
+extractor's dither adds its noise to."""
 
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import numpy as np
 _PCM_DTYPES = {8: np.uint8, 16: "<i2", 32: "<i4"}
 
 
-def read_wav(path: str) -> Tuple[np.ndarray, int]:
-    """-> (samples [N] or [N, C] float64 in [-1, 1), sample_rate)."""
+def _chunks(path: str) -> Tuple[Tuple[int, int, int, int], bytearray]:
+    """((format, channels, sample rate, bits), data chunk) of a RIFF/WAVE
+    file; the data is read into a writable buffer."""
     with open(path, "rb") as f:
         head = f.read(12)
         if len(head) < 12:
@@ -35,7 +38,8 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
             if cid == b"fmt ":
                 fmt = f.read(csize)
             elif cid == b"data":
-                data = f.read(csize)
+                data = bytearray(csize)
+                del data[f.readinto(data):]         # a truncated file
             else:
                 f.seek(csize + (csize & 1), 1)
                 continue
@@ -50,7 +54,30 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
      bits) = struct.unpack("<HHIIHH", fmt[:16])
     if audio_fmt == 0xFFFE and len(fmt) >= 40:     # WAVE_FORMAT_EXTENSIBLE
         audio_fmt = struct.unpack("<H", fmt[24:26])[0]
+    return (audio_fmt, channels, rate, bits), data
 
+
+def read_wav(path: str) -> Tuple[np.ndarray, int]:
+    """-> (samples [N] or [N, C] float64 in [-1, 1), sample_rate)."""
+    head, data = _chunks(path)
+    return _decode(path, head, data), head[2]
+
+
+def read_wav_pcm16(path: str) -> Tuple[np.ndarray, int]:
+    """-> (samples, sample_rate): a 16-bit PCM mono file's samples as the
+    int16 it stores, with no float pass; any other file's samples as
+    read_wav returns them (float64, [N] or [N, C])."""
+    head, data = _chunks(path)
+    audio_fmt, channels, rate, bits = head
+    if (audio_fmt, channels, bits) == (1, 1, 16):
+        return np.frombuffer(data, dtype="<i2"), rate
+    return _decode(path, head, data), rate
+
+
+def _decode(path: str, head: Tuple[int, int, int, int],
+            data: bytearray) -> np.ndarray:
+    """The data chunk as float64 samples in [-1, 1), [N] or [N, C]."""
+    audio_fmt, channels, _rate, bits = head
     if audio_fmt == 1:                              # PCM
         if bits == 24:
             raw = np.frombuffer(data, dtype=np.uint8)
@@ -81,7 +108,7 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
 
     if channels > 1:
         x = x[:len(x) - len(x) % channels].reshape(-1, channels)
-    return x, rate
+    return x
 
 
 def write_wav(path: str, x: np.ndarray, sample_rate: int) -> None:

@@ -15,10 +15,10 @@ Kaldi floating-window CMVN with edge-shifted windows.
   (at full float32: `device.full_fp32_matmuls`), the CMVN windows two
   cumsums and a gather. Every function takes leading batch dimensions, so
   the extractor computes a group of VAD segments in one call.
-- Dithering stays host-side NumPy: the reference adds uniform noise after
-  `np.random.seed(3)` (predict.py:163-164). `add_dither` draws the same
-  numbers from its own `np.random.RandomState`, leaving numpy's global
-  state alone.
+- Dithering: the reference adds uniform noise after `np.random.seed(3)`
+  (predict.py:163-164). `add_dither` is that dither in host NumPy, the
+  reference of the extractor's, which runs on the device
+  (`XVectorExtractor.dither_ints`) against noise it draws once.
 """
 
 from __future__ import annotations
@@ -91,7 +91,14 @@ def add_dither(x: np.ndarray, level: float = 8.0, seed: int = 3
     """HTK-style dithering (features.py:124-125): uniform noise in
     [-level, level) from `np.random.RandomState(seed)`, the numbers
     vbx_tpu's extractor draws after `np.random.seed(seed)`
-    (predict.py:163)."""
+    (predict.py:163), on the host.
+
+    The extractor's main path computes the same float64 sum on the device
+    (`XVectorExtractor.dither_ints`): every file takes the first N numbers
+    of this one sequence, and a generator's draws in pieces concatenate to
+    one draw of the whole, so the extractor keeps the noise it has drawn
+    and draws only a longer file's missing tail. This function stays as
+    that path's host reference."""
     rng = np.random.RandomState(seed)
     return x + level * (rng.rand(*np.shape(x)) * 2 - 1)
 
