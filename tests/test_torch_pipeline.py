@@ -154,6 +154,79 @@ def test_top2_breaks_ties_to_the_lowest_index():
     assert np.asarray(jl2).tolist() == l2.tolist()
 
 
+@pytest.mark.parametrize("n_lanes", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n_dp", [1, 2, 3])
+def test_vb_chunk_masks_and_replica_lanes(corpus, monkeypatch, n_dp,
+                                          n_lanes):
+    """run_vb_chunk, the one chunk path of the corpus pass, the service and
+    the single recording's kernel route, against a chunk built by hand:
+    rows stacked, uniform priors and frame/speaker masks over each lane's
+    (T, S), the lanes padded to a multiple of 'dp' with replicas of lane 0
+    (no mesh at dp = 1), the configured stop rule; its labels, iterations
+    and ELBOs are the engine's on that chunk through _top2."""
+    from vbx_tpu_torch.parallel import engine as tpeng
+    from vbx_tpu_torch.parallel import make_mesh
+
+    cfg = tpreset("example")
+    cfg = cfg.replace(vb=dataclasses.replace(cfg.vb, max_iters=3))
+    diar = tpipe.Diarizer(cfg, *corpus["models"], device="cpu")
+    mesh = make_mesh(n_dp, 1, device="cpu") if n_dp > 1 else None
+    rng = np.random.default_rng(n_dp * 10 + n_lanes)
+    x = diar.transform_xvectors(rng.standard_normal((256, 256)))
+    shapes, xs, gs = [], [], []
+    for b in range(n_lanes):
+        T, k = (256, 90, 200, 131, 17)[b], (2, 5, 3, 1, 4)[b]
+        T_b, S_b, key, Xi, Gi = diar.bucket_planes(x[:T], np.arange(T) % k)
+        assert (T_b, S_b, key) == (T, k, (256, 8))
+        assert not Xi[T:].any() and not Gi[:, S_b:].any()
+        shapes.append((T, S_b))
+        xs.append(torch.as_tensor(Xi))
+        gs.append(torch.as_tensor(Gi))
+    lanes = list(range(n_lanes)) + [0] * (-n_lanes % n_dp)
+    pi = np.zeros((len(lanes), 8), np.float32)
+    fm = np.zeros((len(lanes), 256), bool)
+    sm = np.zeros((len(lanes), 8), bool)
+    for lane, b in enumerate(lanes):
+        T, S = shapes[b]
+        pi[lane, :S], fm[lane, :T], sm[lane, :S] = 1.0 / S, True, True
+    seen = {}
+
+    def spy(real):
+        def engine(*args, **kw):
+            seen["args"], seen["kw"] = args, kw
+            return real(*args, **kw)
+        return engine
+
+    monkeypatch.setattr(tpipe, "vbx_batched", spy(tpipe.vbx_batched))
+    monkeypatch.setattr(tpeng, "vbx_sharded", spy(tpeng.vbx_sharded))
+    rows = (list(xs), list(gs))
+    l1, l2, res = tpipe.run_vb_chunk(diar, *rows, shapes, 256, 8, None,
+                                     mesh)
+    assert rows == ([], [])                  # consumed once stacked
+    args = seen["args"][1:] if mesh is not None else seen["args"]
+    X, phi, G, PI, FM, SM = args
+    hand = (torch.stack([xs[b] for b in lanes]),
+            torch.as_tensor(diar.plda_psi[:cfg.lda_dim], dtype=torch.float32),
+            torch.stack([gs[b] for b in lanes]), torch.as_tensor(pi),
+            torch.as_tensor(fm), torch.as_tensor(sm))
+    for got, want in zip((X, phi, G, PI, FM, SM), hand):
+        assert torch.equal(torch.as_tensor(got), want)
+    eps, p_ulps, p_iters = tpipe.effective_vb_stop(cfg, None)
+    kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
+              max_iters=3, epsilon=eps, fb_impl=None, plateau_ulps=p_ulps,
+              plateau_iters=p_iters)
+    assert {k: seen["kw"][k] for k in kw} == kw
+    if mesh is None:
+        ref = tpipe.vbx_batched(*hand, device="cpu", **kw)
+    else:
+        ref = tpeng.vbx_sharded(mesh, *hand, **kw)
+    r1, r2 = tpipe._top2(ref.gamma, hand[-1])
+    assert l1.shape == (len(lanes), 256) and l1.dtype == torch.int32
+    assert torch.equal(l1, r1) and torch.equal(l2, r2)
+    assert torch.equal(res.n_iters, ref.n_iters)
+    np.testing.assert_array_equal(res.elbo.numpy(), ref.elbo.numpy())
+
+
 def test_preset_kernel_route_resolves_to_structured_on_cpu():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     ami = tpreset("ami_beamformed")

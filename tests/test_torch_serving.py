@@ -9,6 +9,7 @@ tests/test_torch_pipeline.py's byte-equal bar); the port's service and
 vbx_tpu's (XLA:CPU) give byte-equal RTTMs, the bar
 tests/test_torch_pipeline.py holds diarize_ark to."""
 
+import dataclasses
 import json
 import os
 import signal
@@ -28,6 +29,7 @@ import torch
 
 from vbx_tpu_torch.cli.serve import make_handler
 from vbx_tpu_torch.config import get_preset
+from vbx_tpu_torch import serving as tserving
 from vbx_tpu_torch.engine import pipeline as tpipe
 from vbx_tpu_torch.io.ark import read_vec_ark_grouped
 from vbx_tpu_torch.io.segments import read_xvector_timing_dict
@@ -278,40 +280,65 @@ def test_request_size_limit(corpus):
         assert fut.result(timeout=120).n_speakers >= 1
 
 
-def test_batch_padding_policy():
-    """_padded_batch honours 'B divides by dp' for any dp extent, and
-    _chunk_cap never admits a chunk whose PADDED batch exceeds the frames
-    budget (vbx_tpu's test, on the port's methods). Without a mesh the
-    port pads nothing: the batch is B and the cap the frames budget's
-    (vbx_tpu's power-of-two buckets bought XLA one program a size)."""
-    pb = DiarizationService._padded_batch
-    cc = DiarizationService._chunk_cap
-
-    def fake_service(mesh, frames):
-        ns = SimpleNamespace(mesh=mesh, _max_batch_frames=frames)
-        ns._padded_batch = pb.__get__(ns)
-        return ns
+def test_batch_padding_policy(tmp_path, monkeypatch):
+    """utils.bucketing.chunk_cap, the one cap of the corpus pass and the
+    service, never admits a chunk whose PADDED batch (a multiple of 'dp',
+    engine.pipeline.run_vb_chunk) exceeds the frames budget of every
+    device (vbx_tpu's test, on the port's rule). Without a mesh the port
+    pads nothing: the batch is B and the cap the frames budget's (vbx_tpu's
+    power-of-two buckets bought XLA one program a size). Where t_pad
+    exceeds the per-device budget (4096 frames, t_pad 8192, a 2x2 mesh) a
+    chunk holds 2 lanes, 4096 frames a device; the corpus pass once took 4.
+    Both callers hold their mesh chunks to the cap."""
+    from vbx_tpu_torch.parallel import engine as tpeng
+    from vbx_tpu_torch.parallel import make_mesh
+    from vbx_tpu_torch.utils.bucketing import chunk_cap, round_up
 
     for n_dp in (1, 2, 3, 4, 5, 7):
-        fake = fake_service(SimpleNamespace(shape={"dp": n_dp, "sp": 2}),
-                            2_000_000)
         for B in range(1, 33):
-            Bp = pb(fake, B)
+            Bp = round_up(B, n_dp)
             assert Bp >= B and Bp % n_dp == 0 and Bp < B + n_dp, \
                 (n_dp, B, Bp)
-    solo = fake_service(None, 4096)
-    assert all(pb(solo, B) == B for B in range(1, 33))
     for t_pad in (256, 512, 1024, 1536, 4096, 8192):
-        cap = cc(solo, t_pad)
-        raw = max(1, solo._max_batch_frames // t_pad)
-        assert cap == raw and pb(solo, cap) == cap
+        assert chunk_cap(t_pad, 4096) == max(1, 4096 // t_pad)
     for n_dp in (1, 2, 3):
-        meshy = fake_service(SimpleNamespace(shape={"dp": n_dp, "sp": 2}),
-                             4096)
+        meshy = SimpleNamespace(shape={"dp": n_dp, "sp": 2}, size=2 * n_dp)
         for t_pad in (256, 512, 1536):
             raw = (4096 * 2 * n_dp) // t_pad
-            cap = cc(meshy, t_pad)
-            assert cap >= 1 and pb(meshy, cap) <= raw and cap > raw - n_dp
+            cap = chunk_cap(t_pad, 4096, meshy)
+            assert cap >= 1 and round_up(cap, n_dp) <= raw \
+                and cap > raw - n_dp
+    mesh = make_mesh(2, 2, device="cpu")
+    assert chunk_cap(8192, 4096, mesh) == 2
+    # the callers: six recordings of one 256-frame bucket under a budget of
+    # 128 frames a device, 2 lanes a chunk (the corpus pass's doubling
+    # once reached 3 live lanes, padded to 4)
+    cap = chunk_cap(256, 128, mesh)
+    assert cap == 2
+    c = write_corpus(str(tmp_path), 3, [200, 220, 240, 256, 250, 210],
+                     [3, 2, 3, 2, 3, 2])
+    cfg = get_preset("example")
+    cfg = cfg.replace(vb=dataclasses.replace(cfg.vb, max_iters=2))
+    lanes = []
+    real = tpeng.vbx_sharded
+
+    def spy(mesh_, X, *a, **k):
+        lanes.append(X.shape[0])
+        return real(mesh_, X, *a, **k)
+
+    monkeypatch.setattr(tpeng, "vbx_sharded", spy)
+    out = tpipe.diarize_ark(c["ark"], c["segments"], str(tmp_path / "r"),
+                            cfg, c["plda"], c["transform"], verbose=False,
+                            device="cpu", mesh=mesh, max_batch_frames=128)
+    assert len(out) == 6 and sum(lanes) >= 6 and max(lanes) <= cap, lanes
+    lanes.clear()
+    segs = read_xvector_timing_dict(c["segments"])
+    with _service(c, cfg=cfg, mesh=mesh, max_batch_frames=128,
+                  batch_window_ms=300.0) as svc:
+        futs = [svc.submit(rec, x, segs[rec][1])
+                for rec, _, x in read_vec_ark_grouped(c["ark"])]
+        assert all(f.result(timeout=240).n_iters >= 1 for f in futs)
+    assert sum(lanes) >= 6 and max(lanes) <= cap, lanes
 
 
 def test_cohort_spanning_many_chunks(corpus, offline):
@@ -378,11 +405,12 @@ def test_partial_launch_frees_cohort_from_straggler_init(corpus,
                for rec in fast)
 
 
-def test_dispatcher_failure_fails_all_futures(corpus):
+def test_dispatcher_failure_fails_all_futures(corpus, monkeypatch):
     svc = _service(corpus, batch_window_ms=100.0)
     try:
-        svc._chunk_cap = lambda t_pad: (_ for _ in ()).throw(
-            RuntimeError("boom"))
+        monkeypatch.setattr(
+            tserving, "run_vb_chunk",
+            lambda *a, **k: (_ for _ in ()).throw(RuntimeError("boom")))
         rng = np.random.default_rng(0)
         x = rng.normal(size=(64, 256)).astype(np.float32)
         ts = np.stack([np.arange(64) * 0.24,

@@ -7,6 +7,13 @@ Recordings run one by one (streaming) or padded and batched
 by (T, S), runs the host init chain across a thread pool and launches each
 bucket's chunks through the batched engine as they fill.
 
+A VB batch has one format, built in one place for the corpus pass, the
+service (serving.py) and a single recording's kernel route:
+`Diarizer.bucket_planes` pads a recording's feature and qinit planes to
+its (T, S) bucket, and `run_vb_chunk` stacks a chunk of such rows, builds
+its priors and masks, runs the engine with its stop rule and takes the
+top-2 labels on the device. utils.bucketing.chunk_cap caps a chunk's size.
+
 `diarize_ark(mesh=...)` routes every VB bucket through the sharded engine
 (parallel.vbx_sharded): recordings over the mesh's 'dp' rows, the frames of
 each recording over its 'sp' shards.
@@ -45,8 +52,8 @@ from vbx_tpu_torch.io.rttm import merge_adjacent_labels, write_rttm
 from vbx_tpu_torch.io.segments import read_xvector_timing_dict
 from vbx_tpu_torch.io.transform import read_xvec_transform
 from vbx_tpu_torch.parallel import distributed
-from vbx_tpu_torch.parallel.mesh import Mesh
-from vbx_tpu_torch.utils.bucketing import T_QUANTUM
+from vbx_tpu_torch.parallel.mesh import Mesh, check_sp_divides_buckets
+from vbx_tpu_torch.utils.bucketing import bucket_shape, chunk_cap, round_up
 from vbx_tpu_torch.utils.profiling import annotate
 
 
@@ -110,6 +117,62 @@ def effective_vb_stop(config: DiarizationConfig,
     if fb_impl == "pallas_bf16" and vb.bf16_run_to_max:
         return float("-inf"), 0.0, vb.plateau_iters
     return vb.epsilon, vb.plateau_ulps, vb.plateau_iters
+
+
+def run_vb_chunk(diar: "Diarizer", x_rows: List[torch.Tensor],
+                 g_rows: List[torch.Tensor], shapes: List[Tuple[int, int]],
+                 t_pad: int, s_pad: int, fb_impl: Optional[str],
+                 mesh: Optional[Mesh] = None):
+    """Run one VB chunk: B recordings' device rows padded to one bucket
+    (`x_rows` [t_pad, D] features, `g_rows` [t_pad, s_pad] qinit, as
+    Diarizer.bucket_planes makes them) and their true (T, S) `shapes` ->
+    (labels1, labels2, result) on the device: top-2 labels [B', t_pad]
+    int32 and the engine's result (gamma, n_iters, elbo), lane b < B
+    recording b. The row lists are emptied once stacked, so rows whose only
+    other holder was the caller are freed before the EM.
+
+    Priors are uniform over each recording's S speakers; frame and speaker
+    masks mark its (T, S) corner. The stop rule is the engine's
+    (effective_vb_stop). Under a `mesh` the chunk runs through
+    parallel.vbx_sharded with `fb_impl` as its engine, its lanes padded to
+    a multiple of 'dp' with REPLICAS of lane 0 (B' >= B; results
+    discarded: an all-masked lane would put zero counts through the M-step
+    divisions, and a replica converges in lockstep with lane 0, so padding
+    adds no EM iterations). The labels are taken on the device (_top2), so
+    a fetch moves two small integer planes, not gamma."""
+    cfg = diar.config
+    dev = diar.device
+    B = len(x_rows)
+    lanes = list(range(B))
+    if mesh is not None:
+        lanes += [0] * (round_up(B, mesh.shape["dp"]) - B)
+    X = torch.stack([x_rows[b] for b in lanes])
+    G = torch.stack([g_rows[b] for b in lanes])
+    del x_rows[:], g_rows[:]
+    PI = np.zeros((len(lanes), s_pad), dtype=diar._np_dtype)
+    FM = np.zeros((len(lanes), t_pad), dtype=bool)
+    SM = np.zeros((len(lanes), s_pad), dtype=bool)
+    for lane, b in enumerate(lanes):
+        T, S = shapes[b]
+        PI[lane, :S] = 1.0 / S
+        FM[lane, :T] = True
+        SM[lane, :S] = True
+    eps, p_ulps, p_iters = effective_vb_stop(cfg, fb_impl)
+    kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
+              max_iters=cfg.vb.max_iters, epsilon=eps, fb_impl=fb_impl,
+              plateau_ulps=p_ulps, plateau_iters=p_iters)
+    phi = diar._put(diar.plda_psi[:cfg.lda_dim])
+    if mesh is None:
+        res = vbx_batched(X, phi, G, diar._put(PI),
+                          torch.as_tensor(FM, device=dev),
+                          torch.as_tensor(SM, device=dev), device=dev, **kw)
+    else:
+        # imported here: parallel.engine imports the engine package, which
+        # imports this module
+        from vbx_tpu_torch.parallel.engine import vbx_sharded
+        res = vbx_sharded(mesh, X, phi, G, diar._put(PI), FM, SM, **kw)
+    l1, l2 = _top2(res.gamma, torch.as_tensor(SM, device=res.gamma.device))
+    return l1, l2, res
 
 
 def _parse_init(init: str) -> Tuple[str, Optional[int], bool]:
@@ -218,6 +281,21 @@ class Diarizer:
         phi = self.plda_psi[:cfg.lda_dim]
         return fea, phi, qinit
 
+    def bucket_planes(self, x: np.ndarray, labels: np.ndarray):
+        """One recording's VB planes padded to its (T, S) bucket
+        (utils.bucketing.bucket_shape), from its transformed x-vectors and
+        init labels -> (T, S, (t_pad, s_pad), Xi [t_pad, D], Gi [t_pad,
+        s_pad]): host arrays in the engine dtype, zero past (T, S). The
+        caller uploads them and runs them through run_vb_chunk."""
+        fea, _, qinit = self.vb_inputs(x, labels)
+        T, S = qinit.shape
+        key = bucket_shape(T, S)
+        Xi = np.zeros((key[0], fea.shape[1]), dtype=self._np_dtype)
+        Gi = np.zeros(key, dtype=self._np_dtype)
+        Xi[:T] = fea
+        Gi[:T, :S] = qinit
+        return T, S, key, Xi, Gi
+
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, self._np_dtype),
                                device=self.device)
@@ -243,18 +321,10 @@ class Diarizer:
             fea, phi, qinit = self.vb_inputs(x, labels1st)
             T, S = qinit.shape
             if fb_impl is not None and fb_impl.startswith("pallas"):
-                eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, fb_impl)
-                res = vbx_batched(
-                    self._put(fea)[None], self._put(phi),
-                    self._put(qinit)[None],
-                    torch.full((1, S), 1.0 / S, dtype=self.dtype,
-                               device=self.device),
-                    torch.ones((1, T), dtype=torch.bool, device=self.device),
-                    torch.ones((1, S), dtype=torch.bool, device=self.device),
-                    loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
-                    max_iters=cfg.vb.max_iters, epsilon=eps_eff,
-                    fb_impl=fb_impl, plateau_ulps=pu_eff,
-                    plateau_iters=pi_eff, device=self.device)
+                # the batched chunk path at B = 1, unpadded
+                l1, l2, res = run_vb_chunk(
+                    self, [self._put(fea)], [self._put(qinit)], [(T, S)],
+                    T, S, fb_impl)
                 res = res._replace(gamma=res.gamma[0], elbo=res.elbo[0],
                                    n_iters=res.n_iters[0])
             else:
@@ -268,11 +338,11 @@ class Diarizer:
                     fb_impl=fb_impl or "structured",
                     plateau_ulps=cfg.vb.plateau_ulps,
                     plateau_iters=cfg.vb.plateau_iters, device=self.device)
-            # the same on-device top-2 as the batched path, so a recording's
-            # labels are method-identical across routes
-            l1, l2 = _top2(res.gamma[None],
-                           torch.ones((1, S), dtype=torch.bool,
-                                      device=self.device))
+                # the same on-device top-2 as the batched path, so a
+                # recording's labels are method-identical across routes
+                l1, l2 = _top2(res.gamma[None],
+                               torch.ones((1, S), dtype=torch.bool,
+                                          device=self.device))
             labels1st = l1[0].cpu().numpy()
             if S > 1:
                 labels2nd = l2[0].cpu().numpy()
@@ -396,11 +466,7 @@ def diarize_ark(
                     "process_count() > 1 use shard_over_hosts for "
                     "the recording axis (a per-host ('dp','sp') mesh "
                     "over the local devices is not yet wired)")
-            n_sp = mesh.shape["sp"]
-            if T_QUANTUM % n_sp:
-                raise ValueError(
-                    f"mesh 'sp' extent {n_sp} must divide the smallest "
-                    f"frame bucket ({T_QUANTUM})")
+            check_sp_divides_buckets(mesh)
             mesh_fb = (fb_impl if fb_impl in ("structured", "pallas",
                                               "pallas_bf16") else None)
             if not batch or (fb_impl is not None and mesh_fb is None):
@@ -589,20 +655,17 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     vb_chunks_overlapped (chunks launched while init was running), and
     per-bucket shapes.
 
-    `mesh` sends each chunk through parallel.vbx_sharded, padded to a
-    multiple of the 'dp' extent with replicas of its first recording;
-    max_batch_frames is then a per-device budget."""
+    `mesh` sends each chunk through parallel.vbx_sharded (run_vb_chunk),
+    with max_batch_frames the budget of each of its devices (chunk_cap)."""
     from concurrent.futures import ThreadPoolExecutor, as_completed
 
-    from vbx_tpu_torch.clustering import set_native_threads
-    # imported here: parallel.engine imports the engine package, which
-    # imports this module
-    from vbx_tpu_torch.parallel.engine import vbx_sharded
-    from vbx_tpu_torch.utils.bucketing import bucket_shape, chunk_cap
+    from vbx_tpu_torch.utils.hostblas import host_pools, single_thread_blas
 
-    cfg = diar.config
     dev = diar.device
     n = len(recs)
+    # a mesh runs the kernel engines or its own structured smoother (None)
+    vb_fb = (fb_impl if mesh is None or fb_impl in ("pallas", "pallas_bf16")
+             else None)
 
     spans: Dict[str, float] = {}      # host seconds by runlog key
     with annotate("vbx.pre", spans, "pre_linkage_s"):
@@ -622,68 +685,24 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
         else:
             x = diar.transform_xvectors(x_raw)
             labels = diar.initial_labels(x)
-        fea, phi, qinit = diar.vb_inputs(x, labels)
-        T, S = qinit.shape
-        key = bucket_shape(T, S)
-        Xi = np.zeros((key[0], fea.shape[1]), dtype=diar._np_dtype)
-        Gi = np.zeros(key, dtype=diar._np_dtype)
-        Xi[:T] = fea
-        Gi[:T, :S] = qinit
+        planes = diar.bucket_planes(x, labels)
         if verbose:
             print(rec)
-        return i, rec, T, S, key, Xi, Gi, phi
+        return i, planes
 
-    prepped: List[Optional[list]] = [None] * n   # [rec, T, S, X, gamma]
-    phi: Optional[np.ndarray] = None
+    prepped: List[Optional[tuple]] = [None] * n   # (rec, T, S)
+    x_dev: Dict[int, torch.Tensor] = {}           # uploaded planes by index
+    g_dev: Dict[int, torch.Tensor] = {}
     pending: Dict[Tuple[int, int], List[int]] = {}
     next_chunk: Dict[Tuple[int, int], int] = {}   # doubling launch size/key
     done: List[dict] = []
 
     def launch(idxs: List[int], T_pad: int, S_pad: int) -> None:
         with annotate("vbx.vb.chunk"):
-            # under a mesh the sharded engine needs B divisible by the 'dp'
-            # extent: pad with REPLICAS of lane 0 (results discarded; an
-            # all-masked lane would put zero counts through the M-step
-            # divisions, and a replica converges in lockstep with lane 0,
-            # so padding adds no EM iterations)
-            stack_idxs = idxs
-            if mesh is not None:
-                n_dp = mesh.shape["dp"]
-                stack_idxs = idxs + [idxs[0]] * (-len(idxs) % n_dp)
-            B = len(stack_idxs)
-            X = torch.stack([prepped[i][3] for i in stack_idxs])
-            G = torch.stack([prepped[i][4] for i in stack_idxs])
-            PI = np.zeros((B, S_pad), dtype=diar._np_dtype)
-            FM = np.zeros((B, T_pad), dtype=bool)
-            SM = np.zeros((B, S_pad), dtype=bool)
-            for bi, i in enumerate(stack_idxs):
-                _, T, S, _, _ = prepped[i]
-                PI[bi, :S] = 1.0 / S
-                FM[bi, :T] = True
-                SM[bi, :S] = True
-            for i in idxs:
-                prepped[i][3] = prepped[i][4] = None
-            kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa,
-                      Fb=cfg.vb.Fb, max_iters=cfg.vb.max_iters)
-            if mesh is not None:
-                mesh_fb = (fb_impl if fb_impl in ("pallas", "pallas_bf16")
-                           else None)
-                eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, mesh_fb)
-                res = vbx_sharded(
-                    mesh, X, diar._put(phi[:cfg.lda_dim]), G,
-                    diar._put(PI), FM, SM, epsilon=eps_eff,
-                    fb_impl=mesh_fb, plateau_ulps=pu_eff,
-                    plateau_iters=pi_eff, **kw)
-            else:
-                eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg, fb_impl)
-                res = vbx_batched(
-                    X, diar._put(phi[:cfg.lda_dim]), G, diar._put(PI),
-                    torch.as_tensor(FM, device=dev),
-                    torch.as_tensor(SM, device=dev),
-                    epsilon=eps_eff, fb_impl=fb_impl, plateau_ulps=pu_eff,
-                    plateau_iters=pi_eff, device=dev, **kw)
-            l1, l2 = _top2(res.gamma,
-                           torch.as_tensor(SM, device=res.gamma.device))
+            l1, l2, res = run_vb_chunk(
+                diar, [x_dev.pop(i) for i in idxs],
+                [g_dev.pop(i) for i in idxs],
+                [prepped[i][1:] for i in idxs], T_pad, S_pad, vb_fb, mesh)
             done.append({"idxs": idxs, "T_pad": T_pad, "S_pad": S_pad,
                          "l1": l1.cpu().numpy(), "l2": l2.cpu().numpy(),
                          "iters": res.n_iters.cpu().numpy(),
@@ -694,53 +713,30 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
     # single-threaded inside the pool (restored after)
     n_workers = min(init_workers, n, os.cpu_count() or init_workers)
     n_overlapped = 0
-    with annotate("vbx.init", spans, "init_s"):
-        if n_workers > 1:
-            set_native_threads(1)
-        try:
-            import contextlib
+    with annotate("vbx.init", spans, "init_s"), (
+            host_pools(1) if n_workers > 1 else single_thread_blas()), \
+            ThreadPoolExecutor(max_workers=n_workers) as pool:
+        futures = {pool.submit(prep, i): i for i in range(n)}
+        for fut in as_completed(futures):
             try:
-                from threadpoolctl import threadpool_limits
-                blas_ctx = threadpool_limits(limits=1, user_api="blas")
-            except ImportError:
-                blas_ctx = contextlib.nullcontext()
-            with blas_ctx, ThreadPoolExecutor(
-                    max_workers=n_workers) as pool:
-                futures = {pool.submit(prep, i): i for i in range(n)}
-                for fut in as_completed(futures):
-                    try:
-                        i, rec, T, S, key, Xi, Gi, p = fut.result()
-                    except Exception as exc:   # noqa: BLE001 — per rec
-                        _warn_failed(recs[futures[fut]][0], exc, runlog,
-                                     failures)
-                        continue
-                    # upload from the main thread so the copy overlaps the
-                    # pool's remaining init work
-                    prepped[i] = [rec, T, S,
-                                  torch.as_tensor(Xi, device=dev),
-                                  torch.as_tensor(Gi, device=dev)]
-                    if phi is None:
-                        phi = p
-                    pending.setdefault(key, []).append(i)
-                    per_batch = chunk_cap(key[0], max_batch_frames)
-                    if mesh is not None:
-                        # max_batch_frames is a PER-DEVICE budget and the
-                        # mesh splits each chunk's frames over all its
-                        # devices; floor to a dp multiple (at least one dp
-                        # group), since launch() pads B up to one
-                        n_dp = mesh.shape["dp"]
-                        per_batch = max(n_dp,
-                                        per_batch * mesh.size // n_dp * n_dp)
-                    want = min(next_chunk.get(key, 1), per_batch)
-                    if len(pending[key]) >= want:
-                        # launch now, under the remaining init; double the
-                        # next chunk so batch shapes stay few
-                        launch(pending.pop(key), *key)
-                        next_chunk[key] = min(max(2 * want, 2), per_batch)
-                        n_overlapped += 1
-        finally:
-            if n_workers > 1:
-                set_native_threads(os.cpu_count() or 1)
+                i, (T, S, key, Xi, Gi) = fut.result()
+            except Exception as exc:   # noqa: BLE001 — per rec
+                _warn_failed(recs[futures[fut]][0], exc, runlog, failures)
+                continue
+            # upload from the main thread so the copy overlaps the pool's
+            # remaining init work
+            prepped[i] = (recs[i][0], T, S)
+            x_dev[i] = torch.as_tensor(Xi, device=dev)
+            g_dev[i] = torch.as_tensor(Gi, device=dev)
+            pending.setdefault(key, []).append(i)
+            per_batch = chunk_cap(key[0], max_batch_frames, mesh)
+            want = min(next_chunk.get(key, 1), per_batch)
+            if len(pending[key]) >= want:
+                # launch now, under the remaining init; double the next
+                # chunk so batch shapes stay few
+                launch(pending.pop(key), *key)
+                next_chunk[key] = min(max(2 * want, 2), per_batch)
+                n_overlapped += 1
     if stage_log is not None:
         stage_log["init_s"] = round(spans["init_s"], 3)
         stage_log["vb_chunks_overlapped"] = n_overlapped
@@ -758,7 +754,7 @@ def _diarize_batched(diar: Diarizer, recs, max_batch_frames: int,
                      "S_pad": entry["S_pad"],
                      "max_iters_run": int(entry["iters"].max())})
             for bi, i in enumerate(idxs):
-                rec, T, S, _, _ = prepped[i]
+                rec, T, S = prepped[i]
                 l1 = entry["l1"][bi, :T]
                 outputs[rec] = DiarizationOutput(
                     recording=rec, labels1st=l1,

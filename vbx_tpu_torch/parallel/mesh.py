@@ -21,6 +21,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from vbx_tpu_torch.utils.bucketing import T_QUANTUM
+
 
 class Mesh:
     """A ('dp', 'sp') grid of torch devices for one process.
@@ -67,6 +69,17 @@ class Mesh:
         self._row(xs)
         stacked = torch.stack([x.to(xs[0].device) for x in xs])
         return [stacked.to(x.device) for x in xs]
+
+
+def check_sp_divides_buckets(mesh: Mesh) -> None:
+    """Raise ValueError unless the mesh's 'sp' extent divides the smallest
+    frame bucket: T buckets are powers of two >= T_QUANTUM
+    (utils.bucketing), so every bucket then splits evenly over the 'sp'
+    shards. The corpus pass and the service check their mesh with it."""
+    n_sp = mesh.shape["sp"]
+    if T_QUANTUM % n_sp:
+        raise ValueError(f"mesh 'sp' extent {n_sp} must divide the smallest "
+                         f"frame bucket ({T_QUANTUM})")
 
 
 def make_mesh(n_dp: Optional[int] = None, n_sp: int = 1,

@@ -20,21 +20,28 @@ Threads and the card:
 - submit() starts each request's host init (f64 transform + AHC) on the
   init pool at once. A long request's AHC may take the NN-chain walk on
   the card (engine.ahc 'auto'); clustering.device serializes walks.
+- The init pool shares the host's cores: for the service's lifetime each
+  worker's BLAS and native linkage teams are capped at cores // workers
+  (utils.hostblas.host_pools, released by close()).
 - The init thread pads the request's feature and qinit planes to its bucket
-  and uploads them. The upload is synchronous (a pageable host tensor's
-  copy returns once its stream has finished it), so the planes are on the
-  card before the init future resolves, and the dispatch thread, which
-  stacks them only after collecting that future, reads finished data on
-  any stream.
-- One dispatch thread owns every VB launch; top-2 labels are taken on the
-  card (engine.pipeline._top2), so a chunk's fetch moves two small int32
-  planes, not gamma.
+  (engine.pipeline.Diarizer.bucket_planes) and uploads them. The upload is
+  synchronous (a pageable host tensor's copy returns once its stream has
+  finished it), so the planes are on the card before the init future
+  resolves, and the dispatch thread, which stacks them only after
+  collecting that future, reads finished data on any stream.
+- One dispatch thread owns every VB launch, through the corpus pass's one
+  chunk path (engine.pipeline.run_vb_chunk: the stack, the masks, the
+  'dp' replicas, the engine and its stop rule, and the top-2 labels taken
+  on the card, so a chunk's fetch moves two small int32 planes, not
+  gamma). utils.bucketing.chunk_cap sizes its chunks, as the corpus
+  pass's.
 
 The HTTP front-end lives in cli/serve.py; this module owns no sockets.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
 import os
@@ -51,10 +58,11 @@ import torch
 from vbx_tpu_torch.config import DiarizationConfig
 from vbx_tpu_torch.device import DeviceLike
 from vbx_tpu_torch.engine.pipeline import (
-    Diarizer, _parse_init, _top2, effective_vb_stop, resolve_fb_impl)
-from vbx_tpu_torch.engine.vbhmm import vbx_batched
+    Diarizer, _parse_init, resolve_fb_impl, run_vb_chunk)
 from vbx_tpu_torch.io.rttm import merge_adjacent_labels, write_rttm
-from vbx_tpu_torch.utils.bucketing import T_QUANTUM, bucket_shape, chunk_cap
+from vbx_tpu_torch.parallel.mesh import check_sp_divides_buckets
+from vbx_tpu_torch.utils.bucketing import bucket_shape, chunk_cap
+from vbx_tpu_torch.utils.hostblas import host_pools
 
 
 @dataclasses.dataclass
@@ -81,7 +89,7 @@ class ServiceOverloaded(RuntimeError):
 
 class _Request:
     __slots__ = ("recording", "x_raw", "timestamps", "signal", "vad",
-                 "future", "init_future", "t_submit", "phi",
+                 "future", "init_future", "t_submit",
                  "fea_dev", "qinit_dev", "ts",
                  "labels", "t_init_done", "t_launch", "no_partial",
                  "admitted", "released")
@@ -102,7 +110,7 @@ class _Request:
         self.future: Future = Future()
         self.init_future: Optional[Future] = None
         self.t_submit = time.perf_counter()
-        self.phi = self.labels = None
+        self.labels = None
         self.fea_dev = self.qinit_dev = self.ts = None
         self.t_init_done = self.t_launch = None
         # admission accounting: only submit()-admitted requests count
@@ -157,15 +165,10 @@ class DiarizationService:
                 stacklevel=2)
             self._fb_impl = "pallas"
         # a ('dp', 'sp') mesh routes every bucket through the sharded
-        # engine (structured smoother, as vbx_tpu's serving); T buckets are
-        # powers of two >= T_QUANTUM, so 'sp' must divide the smallest
+        # engine (structured smoother, as vbx_tpu's serving)
         self.mesh = mesh
         if mesh is not None:
-            n_sp = mesh.shape.get("sp", 1)
-            if T_QUANTUM % n_sp:
-                raise ValueError(
-                    f"mesh 'sp' extent {n_sp} must divide the smallest "
-                    f"frame bucket ({T_QUANTUM})")
+            check_sp_divides_buckets(mesh)
         self._window_s = batch_window_ms / 1e3
         # head-of-line bound: a bucket group whose oldest member has waited
         # this long launches as a PARTIAL chunk instead of waiting for the
@@ -180,21 +183,13 @@ class DiarizationService:
         self._queue: "queue.Queue" = queue.Queue()
         self._warmup_lock = threading.Lock()
         init_workers = max(1, init_workers)
-        self._blas_limit = None
+        # the native linkage runs an OpenMP team per call and NumPy's dgemm
+        # a BLAS team: the init pool's workers share the cores for the
+        # service's lifetime (process-global; close() restores both)
+        self._pools = contextlib.ExitStack()
         if init_workers > 1:
-            # the native linkage/EM runs an OpenMP team per call and
-            # NumPy's dgemm a BLAS team: the init pool's workers share the
-            # cores for the service's lifetime
-            from vbx_tpu_torch.clustering import set_native_threads
-            share = max(1, (os.cpu_count() or init_workers) // init_workers)
-            set_native_threads(share)
-            try:
-                from threadpoolctl import threadpool_limits
-                # process-global; close() restores the original limits
-                self._blas_limit = threadpool_limits(limits=share,
-                                                     user_api="blas")
-            except ImportError:
-                pass
+            self._pools.enter_context(host_pools(
+                max(1, (os.cpu_count() or init_workers) // init_workers)))
         self._init_pool = ThreadPoolExecutor(
             max_workers=init_workers, thread_name_prefix="vbx-serve-init")
         from vbx_tpu_torch.utils.runlog import RunLog
@@ -336,9 +331,7 @@ class DiarizationService:
             self._queue.put(_SHUTDOWN)
         self._worker.join()
         self._init_pool.shutdown(wait=False)
-        if self._blas_limit is not None:
-            self._blas_limit.restore_original_limits()
-            self._blas_limit = None
+        self._pools.close()
         self._runlog.close()
 
     def __enter__(self) -> "DiarizationService":
@@ -421,16 +414,8 @@ class DiarizationService:
         x = self._diar.transform_xvectors(req.x_raw)
         req.labels = self._diar.initial_labels(x)
         if run_vb:
-            fea, phi, qinit = self._diar.vb_inputs(x, req.labels)
-            req.phi = phi
-            T, S = qinit.shape
+            T, S, _, Xi, Gi = self._diar.bucket_planes(x, req.labels)
             req.ts = (T, S)
-            t_pad, s_pad = bucket_shape(T, S)
-            dt = self._diar._np_dtype
-            Xi = np.zeros((t_pad, fea.shape[1]), dtype=dt)
-            Gi = np.zeros((t_pad, s_pad), dtype=dt)
-            Xi[:T] = fea
-            Gi[:T, :S] = qinit
             # synchronous uploads (module docstring): finished before the
             # init future resolves, so the dispatch thread may stack them
             req.fea_dev = torch.as_tensor(Xi, device=self.device)
@@ -542,7 +527,8 @@ class DiarizationService:
                         groups[key] = []
                         group_born[key] = now
                     groups[key].append(req)
-                    if len(groups[key]) >= self._chunk_cap(key[0]):
+                    if len(groups[key]) >= chunk_cap(
+                            key[0], self._max_batch_frames, self.mesh):
                         launch(groups.pop(key), *key)
                         group_born.pop(key, None)
                 for key in [k for k, born in group_born.items()
@@ -558,7 +544,7 @@ class DiarizationService:
                         and _ready(in_flight[0])):
                     self._finish_chunk(in_flight.popleft())
             for (t_pad, s_pad), reqs in sorted(groups.items()):
-                cap = self._chunk_cap(t_pad)
+                cap = chunk_cap(t_pad, self._max_batch_frames, self.mesh)
                 for k in range(0, len(reqs), cap):
                     launch(reqs[k:k + cap], t_pad, s_pad)
             while in_flight:
@@ -569,83 +555,20 @@ class DiarizationService:
                     self._fail(req, exc)
         return stop
 
-    def _chunk_cap(self, t_pad: int) -> int:
-        """Requests per device chunk for a bucket of padded length t_pad:
-        the frames budget; under a mesh, the budget of every device,
-        floored to a multiple of 'dp' so that the PADDED batch
-        (_padded_batch) still fits; at least 1."""
-        if self.mesh is None:
-            return chunk_cap(t_pad, self._max_batch_frames)
-        n_devs = int(np.prod(list(self.mesh.shape.values())))
-        n_dp = self.mesh.shape.get("dp", 1)
-        cap = max(1, (self._max_batch_frames * n_devs) // t_pad)
-        return max(1, cap // n_dp * n_dp)
-
-    def _padded_batch(self, B: int) -> int:
-        """Device batch size for B live requests: B itself (the kernel
-        route compiles nothing, so a batch size costs nothing to add), or
-        under a mesh B rounded UP to a multiple of the 'dp' extent
-        (vbx_sharded's divisibility contract)."""
-        if self.mesh is None:
-            return B
-        n_dp = self.mesh.shape.get("dp", 1)
-        return -(-B // n_dp) * n_dp
-
     def _launch_chunk(self, reqs: List[_Request], t_pad: int,
                       s_pad: int) -> Optional[dict]:
-        """Pad and run one device chunk; returns an entry for
-        _finish_chunk, or None if the launch failed (those requests are
-        already failed)."""
-        diar = self._diar
-        cfg = diar.config
-        dev = self.device
-        B = len(reqs)
-        # under a mesh the batch axis pads to a multiple of 'dp' with copies
-        # of request 0 (results discarded): replicas converge with lane 0
-        # (an all-masked lane would put zero counts through the M-step
-        # divisions)
-        Bp = self._padded_batch(B)
-        dt = diar._np_dtype
-        PI = np.zeros((Bp, s_pad), dtype=dt)
-        FM = np.zeros((Bp, t_pad), dtype=bool)
-        SM = np.zeros((Bp, s_pad), dtype=bool)
-        for b, req in enumerate(reqs):
-            T, S = req.ts
-            PI[b, :S] = 1.0 / S
-            FM[b, :T] = True
-            SM[b, :S] = True
-        for b in range(B, Bp):
-            PI[b], FM[b], SM[b] = PI[0], FM[0], SM[0]
-        # the planes were padded and uploaded at init time (_init_one): the
-        # batch is a stack on the card
-        x_rows = [req.fea_dev for req in reqs]
-        g_rows = [req.qinit_dev for req in reqs]
-        x_rows += [x_rows[0]] * (Bp - B)
-        g_rows += [g_rows[0]] * (Bp - B)
+        """Run one device chunk (engine.pipeline.run_vb_chunk); returns an
+        entry for _finish_chunk, or None if the launch failed (those
+        requests are already failed). The engine is the service's: under a
+        mesh the sharded engine's structured smoother, as vbx_tpu's."""
         try:
-            X = torch.stack(x_rows)
-            G = torch.stack(g_rows)
-            kw = dict(loop_prob=cfg.vb.loop_prob, Fa=cfg.vb.Fa, Fb=cfg.vb.Fb,
-                      max_iters=cfg.vb.max_iters)
-            phi = diar._put(reqs[0].phi)
-            if self.mesh is not None:
-                from vbx_tpu_torch.parallel.engine import vbx_sharded
-                res = vbx_sharded(
-                    self.mesh, X, phi, G, diar._put(PI), FM, SM,
-                    epsilon=cfg.vb.epsilon, plateau_ulps=cfg.vb.plateau_ulps,
-                    plateau_iters=cfg.vb.plateau_iters, **kw)
-            else:
-                eps_eff, pu_eff, pi_eff = effective_vb_stop(cfg,
-                                                            self._fb_impl)
-                res = vbx_batched(
-                    X, phi, G, diar._put(PI),
-                    torch.as_tensor(FM, device=dev),
-                    torch.as_tensor(SM, device=dev), epsilon=eps_eff,
-                    fb_impl=self._fb_impl, plateau_ulps=pu_eff,
-                    plateau_iters=pi_eff, device=dev, **kw)
-            # top-2 labels on the card: the fetch moves two int32 planes
-            l1, l2 = _top2(res.gamma,
-                           torch.as_tensor(SM, device=res.gamma.device))
+            # the planes were padded and uploaded at init time (_init_one):
+            # the batch is a stack on the card
+            l1, l2, res = run_vb_chunk(
+                self._diar, [req.fea_dev for req in reqs],
+                [req.qinit_dev for req in reqs], [req.ts for req in reqs],
+                t_pad, s_pad, None if self.mesh else self._fb_impl,
+                self.mesh)
             ready = None
             if l1.device.type == "cuda":
                 ready = torch.cuda.Event()
@@ -658,7 +581,7 @@ class DiarizationService:
         for req in reqs:
             req.t_launch = now
         return {"reqs": reqs, "iters": res.n_iters, "l1": l1, "l2": l2,
-                "ready": ready, "B": B}
+                "ready": ready, "B": len(reqs)}
 
     def _finish_chunk(self, entry: dict) -> None:
         cfg = self._diar.config

@@ -319,22 +319,20 @@ def corpus_agreement(truth: Dict[str, np.ndarray], outputs) -> float:
 @contextlib.contextmanager
 def host_threads(n: int = 1):
     """Cap this process's host thread pools at n inside the block: torch's
-    intra-op pool, the BLAS and OpenMP pools threadpoolctl finds, and the
-    native linkage's OpenMP team (restored to the core count after). A test
-    suite that runs several worker processes on one host uses it: pools
-    sized to the whole host in every worker oversubscribe it, and
-    spin-waiting BLAS/OpenMP threads then slow each worker several-fold."""
+    intra-op pool, and through utils.hostblas.host_pools the BLAS and
+    OpenMP pools threadpoolctl finds and the native linkage's OpenMP team
+    (all restored after). A test suite that runs several worker processes
+    on one host uses it: pools sized to the whole host in every worker
+    oversubscribe it, and spin-waiting BLAS/OpenMP threads then slow each
+    worker several-fold."""
     import torch
-    from threadpoolctl import threadpool_limits
 
-    from vbx_tpu_torch.clustering import set_native_threads
+    from vbx_tpu_torch.utils.hostblas import host_pools
 
     before = torch.get_num_threads()
     torch.set_num_threads(n)
-    set_native_threads(n)
     try:
-        with threadpool_limits(limits=n):
+        with host_pools(n, user_api=None):
             yield
     finally:
         torch.set_num_threads(before)
-        set_native_threads(os.cpu_count() or 1)

@@ -1,4 +1,5 @@
-"""Ragged-batch bucketing (copy of vbx_tpu.utils.bucketing).
+"""Ragged-batch bucketing (vbx_tpu.utils.bucketing, with chunk_cap's mesh
+case, which vbx_tpu's service keeps to itself).
 
 Corpus recordings vary in length by orders of magnitude (T ~ 1e2..1e5
 x-vectors). One global pad wastes device work, and one batch per length
@@ -34,11 +35,15 @@ def bucket_shape(t: int, s: int, t_quantum: int = T_QUANTUM,
     return tq, round_up(max(s, 1), s_quantum)
 
 
-def chunk_cap(t_pad: int, max_batch_frames: int) -> int:
+def chunk_cap(t_pad: int, max_batch_frames: int, mesh=None) -> int:
     """Recordings per device batch for a bucket of padded length t_pad
-    under a total-frames budget — THE batching-policy cap; pad_to_buckets
-    and the pipeline's streaming dispatcher both consume it."""
-    return max(1, max_batch_frames // t_pad)
+    under a total-frames budget — THE batching-policy cap; pad_to_buckets,
+    the corpus pass and the service all consume it. Under a ('dp', 'sp')
+    mesh the budget is every device's: at most max_batch_frames x devices
+    // t_pad, floored to a multiple of 'dp' so that the chunk padded to
+    'dp' (engine.pipeline.run_vb_chunk) still fits; at least 1."""
+    n_dev, n_dp = (1, 1) if mesh is None else (mesh.size, mesh.shape["dp"])
+    return max(1, max_batch_frames * n_dev // t_pad // n_dp * n_dp)
 
 
 def pad_to_buckets(
